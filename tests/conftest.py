@@ -91,3 +91,9 @@ def run_oracle(dectest, stream_path, out_path, extra_args=()):
             f"oracle produced no output: {r.stdout}\n{r.stderr}")
     with open(out_path, "rb") as f:
         return f.read(), r.stdout
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the torch port's hand-written "
+        "kernels); skips without one")
