@@ -1,11 +1,22 @@
-"""Device-side unpack of the compact v2 picture buffer (torch twin of
-``broadway_tpu.core.packed.unpack_arrs_v2``).
+"""The compact v2 picture buffer: its layout and host packer, and the
+device-side unpack (counterpart of ``broadway_tpu.core.packed``'s v2
+half).
 
-The layout (``PackedLayoutV2``) and the host packer
-(``pack_picture_v2``, native ``bw_pack_picture2``) are shared with the
-JAX package and imported from it; only the unpack runs here, on the
-buffer's device, and it returns the same per-MB dict (same keys, shapes
-and values; integer arrays as int32, flags as bool).
+The layout (``PackedLayoutV2``), the bucket rules and the host packer
+(``pack_picture_v2`` over the native ``bw_pack_picture2``) are this
+package's own copy and write the same bytes as the JAX package's. The
+unpack runs on the buffer's device and returns the same per-MB dict
+(same keys, shapes and values; integer arrays as int32, flags as bool).
+The v1 format is not ported.
+
+Layout, 13 B/MB base instead of dense per-block arrays, everything
+block-granular sparse:
+  - mv/ref: one uniform (mv, ref) per MB + 80-byte exception rows for
+    MBs with non-uniform partitions
+  - i4 modes: exception rows for I4x4 MBs with any nonzero mode
+  - total_coeff: a 16-bit mask (deblock bS only needs tc > 0)
+  - per-slice deblock params: a 1024-entry table indexed by slice_id
+It must match the native ``bw_pack_picture2`` (csrc/frontend.cpp).
 
 The JAX unpack scatters the sparse rows with ``mode="drop"``: pad rows
 carry the out-of-range index NR (NE for exception rows). torch has no
@@ -18,13 +29,162 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
-from broadway_tpu.bitstream.mb_layer import MB_I4x4, MB_I16x16, MB_IPCM, \
-    MB_P
-from broadway_tpu.core.packed import PackedLayoutV2
+from ..bitstream.mb_layer import MB_I4x4, MB_I16x16, MB_IPCM, MB_P, \
+    PictureData
 
 I32 = torch.int32
+
+
+class PackedLayoutV2:
+    """Static buffer layout v2 for a (w_mbs, h_mbs) picture grid.
+
+    Sections: 13 B/MB base | slice-param table | i8 coeff rows
+    (idx i32 + 16 x i8 = 20 B) | i16 coeff rows (36 B; large levels +
+    I_PCM) | exception rows (84 B). Each sparse section is padded to a
+    bucket size (the JAX package's jit signatures; kept so that both
+    packages pack the same bytes)."""
+
+    SPT = 3 * 1024        # slice-param table bytes
+
+    def __init__(self, w_mbs: int, h_mbs: int) -> None:
+        self.w = w_mbs
+        self.h = h_mbs
+        n = w_mbs * h_mbs
+        self.n = n
+        self.base_size = 13 * n + self.SPT
+        self.NR = 38 * n                      # coeff sparse row space
+        self.NE = n                           # exception row space
+        # all sparse-section offsets are 1024-aligned: the native packer
+        # and the JAX package's buffers share this layout byte for byte
+        self.idx_off = (self.base_size + 1023) & ~1023
+
+        def ladder(steps):
+            out = [b for b in steps if b < self.NR]
+            return out + [self.NR]
+
+        self.k8buckets = ladder((4096, 8192, 16384, 32768, 65536,
+                                 262144))
+        self.k16buckets = ladder((512, 4096, 65536))
+        eb = [b for b in (512, 1024, 2048, 4096, 8192) if b < self.NE]
+        self.ebuckets = eb + [self.NE]
+
+    @staticmethod
+    def _pick(buckets, k):
+        for b in buckets:
+            if b >= k:
+                return b
+        return buckets[-1]
+
+    def bucket8(self, k: int) -> int:
+        return self._pick(self.k8buckets, k)
+
+    def bucket16(self, k: int) -> int:
+        return self._pick(self.k16buckets, k)
+
+    def ebucket(self, e: int) -> int:
+        return self._pick(self.ebuckets, e)
+
+    # section offsets for bucket sizes (kb8, kb16, eb)
+    def val8_off(self, kb8: int) -> int:
+        return (self.idx_off + 4 * kb8 + 1023) & ~1023
+
+    def idx16_off(self, kb8: int) -> int:
+        return (self.val8_off(kb8) + 16 * kb8 + 1023) & ~1023
+
+    def val16_off(self, kb8: int, kb16: int) -> int:
+        return (self.idx16_off(kb8) + 4 * kb16 + 1023) & ~1023
+
+    def eidx_off(self, kb8: int, kb16: int) -> int:
+        return (self.val16_off(kb8, kb16) + 32 * kb16 + 1023) & ~1023
+
+    def eval_off(self, kb8: int, kb16: int, eb: int) -> int:
+        return (self.eidx_off(kb8, kb16) + 4 * eb + 1023) & ~1023
+
+    def total_size(self, kb8: int, kb16: int, eb: int) -> int:
+        # padded to 1024, as the JAX package's buffers are
+        return (self.eval_off(kb8, kb16, eb) + 80 * eb + 1023) & ~1023
+
+    def __hash__(self):
+        return hash((self.w, self.h, "v2"))
+
+    def __eq__(self, other):
+        return isinstance(other, PackedLayoutV2) and \
+            (self.w, self.h) == (other.w, other.h)
+
+
+_LAYOUTS_V2: Dict[tuple, PackedLayoutV2] = {}
+
+
+def get_packed_layout_v2(w_mbs: int, h_mbs: int) -> PackedLayoutV2:
+    key = (w_mbs, h_mbs)
+    if key not in _LAYOUTS_V2:
+        _LAYOUTS_V2[key] = PackedLayoutV2(w_mbs, h_mbs)
+    return _LAYOUTS_V2[key]
+
+
+class PackScratchV2:
+    """Reusable host-side buffers for the native v2 packer."""
+
+    def __init__(self, lay: PackedLayoutV2) -> None:
+        self.lay = lay
+        self.base = np.empty(lay.base_size, np.uint8)
+        self.idx8 = np.empty(lay.NR, np.int32)
+        self.val8 = np.empty((lay.NR, 16), np.int8)
+        self.idx = np.empty(lay.NR, np.int32)
+        self.val = np.empty((lay.NR, 16), np.int16)
+        self.eidx = np.empty(lay.NE, np.int32)
+        self.eval_ = np.empty((lay.NE, 80), np.uint8)
+
+
+def pack_picture_v2(pic: PictureData, lay: PackedLayoutV2,
+                    scratch: PackScratchV2, force=None):
+    """Native pack + bucket-padded single-buffer assembly.
+    Returns (uint8 buffer, (kb8, kb16, eb)), or None if the picture
+    does not fit the v2 format (more than 1024 slices). force pins the
+    bucket triple."""
+    from ..bitstream.native import pack_picture2_native
+    if len(pic.slice_params) > 1024:
+        return None
+    k8, k, e = pack_picture2_native(pic, scratch.base, scratch.idx8,
+                                    scratch.val8, scratch.idx,
+                                    scratch.val, scratch.eidx,
+                                    scratch.eval_)
+    if force is not None:
+        kb8, kb16, eb = force
+        if k8 > kb8 or k > kb16 or e > eb:
+            return None
+    else:
+        kb8, kb16, eb = (lay.bucket8(k8), lay.bucket16(k),
+                         lay.ebucket(e))
+    buf = np.empty(lay.total_size(kb8, kb16, eb), np.uint8)
+    buf[:lay.base_size] = scratch.base
+
+    io = lay.idx_off
+    iv = buf[io:io + 4 * kb8].view(np.int32)
+    iv[:k8] = scratch.idx8[:k8]
+    iv[k8:] = lay.NR         # out of range -> dropped by the scatter
+    vo = lay.val8_off(kb8)
+    buf[vo:vo + 16 * kb8].view(np.int8).reshape(kb8, 16)[:k8] = \
+        scratch.val8[:k8]
+
+    io = lay.idx16_off(kb8)
+    iv = buf[io:io + 4 * kb16].view(np.int32)
+    iv[:k] = scratch.idx[:k]
+    iv[k:] = lay.NR
+    vo = lay.val16_off(kb8, kb16)
+    buf[vo:vo + 32 * kb16].view(np.int16).reshape(kb16, 16)[:k] = \
+        scratch.val[:k]
+
+    eo = lay.eidx_off(kb8, kb16)
+    ei = buf[eo:eo + 4 * eb].view(np.int32)
+    ei[:e] = scratch.eidx[:e]
+    ei[e:] = lay.NE
+    evo = lay.eval_off(kb8, kb16, eb)
+    buf[evo:evo + 80 * eb].reshape(eb, 80)[:e] = scratch.eval_[:e]
+    return buf, (kb8, kb16, eb)
 
 
 def _shift_grid(g: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
@@ -74,20 +234,19 @@ def _scatter_rows(n_rows: int, idx: torch.Tensor, vals: torch.Tensor,
 
 
 def pack_stream(data: bytes, max_pics: int = None):
-    """Parse an Annex-B stream with the shared host engine and pack each
-    picture (v2) as the torch Decoder does, reconstructing no pixels.
+    """Parse an Annex-B stream with the host engine and pack each
+    picture (v2) as the Decoder does, reconstructing no pixels.
     Returns [(buf, bk, layout, constrained_intra, chroma_qp_offset,
     n_slots)], n_slots = dpb_size + 1 as the Decoder's stacks."""
-    from broadway_tpu.core import decoder as DEC
-    from broadway_tpu.core import packed as PK
+    from . import decoder as DEC
 
     out = []
 
     def collect(dec, pic):
         if max_pics is None or len(out) < max_pics:
-            lay = PK.get_packed_layout_v2(dec.sps.width_mbs,
-                                          dec.sps.height_mbs)
-            res = PK.pack_picture_v2(pic, lay, PK.PackScratchV2(lay))
+            lay = get_packed_layout_v2(dec.sps.width_mbs,
+                                       dec.sps.height_mbs)
+            res = pack_picture_v2(pic, lay, PackScratchV2(lay))
             if res is None:
                 raise ValueError("picture does not fit the v2 format")
             out.append((res[0], res[1], lay, dec.pps.constrained_intra_pred,
@@ -95,7 +254,11 @@ def pack_stream(data: bytes, max_pics: int = None):
                         dec.dpb.dpb_size + 1))
         return DEC.SKIP_RECON
 
-    DEC.Decoder(backend="cpu", recon_strategy=collect).decode_annexb(data)
+    dec = DEC.Decoder(device="cpu", recon_strategy=collect)
+    try:
+        dec.decode_annexb(data)
+    finally:
+        dec.close()
     return out
 
 

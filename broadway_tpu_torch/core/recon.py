@@ -22,14 +22,12 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from broadway_tpu.core.packed import PackedLayoutV2
-
 from ..ops.gpu import mc_kernel as K1
 from ..ops.gpu import wavefront_kernels as KW
 from ..ops.gpu.deblock import deblock_params
 from ..ops.gpu.intra import intra_params
 from ..ops.gpu.residual import residual_stage
-from .packed import unpack_arrs_v2
+from .packed import PackedLayoutV2, unpack_arrs_v2
 
 U8 = torch.uint8
 

@@ -15,7 +15,7 @@ from typing import Dict
 
 import torch
 
-from broadway_tpu.bitstream.mb_layer import MB_I4x4, MB_I16x16
+from ...bitstream.mb_layer import MB_I4x4, MB_I16x16
 
 from .tables import AVUR_CODE, BLK_ORDER, diagonals, tables
 

@@ -1,10 +1,10 @@
 """Every constant table of the decode pipeline as a torch tensor.
 
-Sources: ``broadway_tpu.ops.transform`` (LEVEL_SCALE, QP_C, ZIGZAG_4x4,
-_POS_CLASS) and ``broadway_tpu.core.deblock_impl`` (ALPHAS, BETAS, TC0)
-are JAX-free and imported. ``broadway_tpu.ops.tpu.intra`` imports JAX,
-so its Intra4x4 tap tables (IDX/COEF/RND/SHIFT), BLK_ORDER and
-NO_UPRIGHT are re-derived here in numpy; tests pin them equal.
+Sources: the port's ``ops.transform`` (LEVEL_SCALE, QP_C, ZIGZAG_4x4,
+_POS_CLASS) and ``core.deblock_impl`` (ALPHAS, BETAS, TC0). The Intra4x4
+tap tables (IDX/COEF/RND/SHIFT), BLK_ORDER and NO_UPRIGHT of
+``broadway_tpu.ops.tpu.intra`` are re-derived here in numpy; tests pin
+them equal.
 
 ``tables(device)`` builds the tensors once per device.
 """
@@ -16,8 +16,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from broadway_tpu.core.deblock_impl import ALPHAS, BETAS, TC0
-from broadway_tpu.ops.transform import LEVEL_SCALE, QP_C, ZIGZAG_4x4, \
+from ...core.deblock_impl import ALPHAS, BETAS, TC0
+from ..transform import LEVEL_SCALE, QP_C, ZIGZAG_4x4, \
     _POS_CLASS
 
 # ---------------------------------------------------------------------------
