@@ -114,11 +114,11 @@ class Decoder:
     versions)."""
 
     def __init__(self, device="cuda", parallel_slices: int = 0,
-                 no_reordering: bool = False, frontend: str = "auto",
+                 no_reordering: bool = False, frontend: str = "native",
                  recon: str = "torch", recon_strategy=None) -> None:
         # frontend: "native" (the C++ parser of csrc/frontend.cpp; built
-        # at first use, and a failed build raises), "auto" (the same) or
-        # "python" (the readable parser of bitstream/, only on request).
+        # at first use, and a failed build raises) or "python" (the
+        # readable parser of bitstream/, only on request).
         # parallel_slices: >1 = parse a picture's slices concurrently on
         # a thread pool (the native parser releases the GIL). Slice
         # parsing is deferred to the picture boundary, like the
@@ -130,7 +130,7 @@ class Decoder:
         # replaces the pixel backend for error-free pictures (tools that
         # only need the parsed tensors return SKIP_RECON). DPB/POC/output
         # bookkeeping is unchanged; only the reconstruction is delegated.
-        if frontend not in ("auto", "native", "python"):
+        if frontend not in ("native", "python"):
             raise ValueError(f"unknown frontend {frontend!r}")
         if recon not in ("torch", "numpy"):
             raise ValueError(f"unknown recon {recon!r}")
@@ -143,7 +143,7 @@ class Decoder:
                                    "available")
         self.device = device
         self.recon = recon
-        self.frontend = "python" if frontend == "python" else "native"
+        self.frontend = frontend
         if self.frontend == "native":
             nat.load()          # a missing compiler shows here, loudly
         self.parallel_slices = parallel_slices

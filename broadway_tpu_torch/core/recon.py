@@ -98,8 +98,8 @@ def decode_picture(arrs: Dict[str, torch.Tensor], ref_y: torch.Tensor,
     res_y, res_c = residual_stage(arrs, chroma_qp_offset)
 
     if run_stages == 0:
-        pred_y = torch.zeros((N, 16, 16), dtype=torch.int32, device=dev)
-        pred_c = torch.zeros((N, 8, 16), dtype=torch.int32, device=dev)
+        pred_y = torch.zeros((N, 16, 16), dtype=U8, device=dev)
+        pred_c = torch.zeros((N, 8, 16), dtype=U8, device=dev)
     else:
         pred_y, pred_c = K1.mc_predict(ref_y, ref_c,
                                        arrs["mv"].contiguous(),
@@ -111,6 +111,7 @@ def decode_picture(arrs: Dict[str, torch.Tensor], ref_y: torch.Tensor,
     pcm = arrs["ipcm"].to(torch.int32)
     is_p = arrs["is_inter"][:, None, None]
     is_pcm = arrs["is_pcm"][:, None, None]
+    # predictions are uint8: the sum with the int32 residual is int32
     base_y = torch.where(is_pcm, pcm[:, :256].reshape(N, 16, 16),
                          torch.where(is_p, (pred_y + res_y).clamp(0, 255),
                                      0))

@@ -42,12 +42,14 @@ extern "C" int bw_handoff_probe(int* progress, int w_mbs, int h_mbs,
                                 progress, h_mbs, args, (cudaStream_t)stream);
 }
 
-// For tests only: cap the grid of every wavefront launch at n CTAs (0
-// lifts the cap), so that a test can drive the rows-beyond-resident-CTAs
-// stride on a small picture, which a card with more SMs than rows never
-// reaches otherwise. The cap is one plain int for the whole process: set
-// it only while no decoder is launching from another thread. No decoding
-// path calls this. Returns the previous cap.
+// A TEST-ONLY knob, not part of the decoding interface: cap the grid of
+// every wavefront launch at n CTAs (0 lifts the cap), so that a test can
+// drive the rows-beyond-resident-CTAs stride on a small picture, which a
+// card with more SMs than rows never reaches otherwise. The cap is one
+// plain int for the whole process, read without a lock by every launch:
+// it is not safe beside the decoder's slice-pool threads or a second
+// decoder launching from another thread, so set it only while nothing
+// else decodes. No decoding path calls this. Returns the previous cap.
 extern "C" int bw_wavefront_set_max_ctas(int n) {
   const int old = bwwf::max_ctas;
   bwwf::max_ctas = n < 0 ? 0 : n;

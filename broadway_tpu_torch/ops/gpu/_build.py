@@ -41,6 +41,15 @@ _P, _I = ct.c_void_p, ct.c_int
 SIGNATURES = {
     # ref_y, ref_c, mv, ref_blk, pred_y, pred_c, n, w_mbs, h_mbs, R, stream
     "bw_mc_predict": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the same arguments, int32 predictions: K1's first form (mc_pel.cu)
+    "bw_mc_predict_pel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # n MBs -> CTAs of K1's launch; -> threads per CTA
+    "bw_mc_ctas": [_I],
+    "bw_mc_threads": [],
+    # ctas, threads, stream: an empty kernel of that grid and block
+    "bw_launch_probe": [_I, _I, _P],
+    # cycles, stream: one thread spinning, to queue launches up behind
+    "bw_hold_stream": [ct.c_longlong, _P],
     # Y, C, RY, RC, P, table, progress, w_mbs, h_mbs, stream
     "bw_intra_wavefront": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
     # Y, C, P, progress, w_mbs, h_mbs, stream

@@ -100,8 +100,9 @@ def mc_predict_plain(ref_y: torch.Tensor, ref_c: torch.Tensor,
                      mv: torch.Tensor, ref_blk: torch.Tensor, w_mbs: int,
                      h_mbs: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain whole-picture MC; same contract as the K1 wrapper
-    (``mc_kernel.mc_predict``): pred_y [n, 16, 16] int32 and pred_c
-    [n, 8, 16] int32 with lane 2k = cb column k, 2k+1 = cr column k."""
+    (``mc_kernel.mc_predict``): pred_y [n, 16, 16] uint8 and pred_c
+    [n, 8, 16] uint8 with lane 2k = cb column k, 2k+1 = cr column k, and 0
+    in every 4x4 block (and its 2x2 chroma blocks) whose ref_blk < 0."""
     n = mv.shape[0]
     dev = mv.device
     R = ref_y.shape[0]
@@ -114,17 +115,21 @@ def mc_predict_plain(ref_y: torch.Tensor, ref_c: torch.Tensor,
     bpy = (pyv[:, None, None] + by * 4).expand(n, 4, 4).reshape(-1)
     mvx = mv[..., 0].reshape(-1)
     mvy = mv[..., 1].reshape(-1)
-    # ref_blk is -1 on intra MBs: clamp into the stack like the JAX
-    # dynamic_slice does
+    # ref_blk is -1 on intra MBs: such a block predicts nothing. Its
+    # window is gathered from slot 0 all the same (one batched pass) and
+    # the result zeroed.
+    used = (ref_blk.reshape(-1) >= 0)[:, None, None]
     ridx = ref_blk.reshape(-1).clamp(0, R - 1)
 
-    pred_y = mc_luma_blocks(ref_y, ridx, bpx, bpy, mvx, mvy)
+    pred_y = mc_luma_blocks(ref_y, ridx, bpx, bpy, mvx, mvy) * used
     pred_y = pred_y.reshape(n, 4, 4, 4, 4).permute(0, 1, 3, 2, 4) \
         .reshape(n, 16, 16)
     cpx = ((pxv // 2)[:, None, None] + bx * 2).expand(n, 4, 4).reshape(-1)
     cpy = ((pyv // 2)[:, None, None] + by * 2).expand(n, 4, 4).reshape(-1)
-    pc = mc_chroma_blocks(ref_c, ridx, cpx, cpy, mvx, mvy)  # [n*16,p,r,c]
+    pc = mc_chroma_blocks(ref_c, ridx, cpx, cpy, mvx, mvy) \
+        * used[..., None]                                   # [n*16,p,r,c]
     # -> [n, by, r, bx, c, p] -> [n, 8 rows, 16 lanes (2*col + plane)]
     pred_c = pc.reshape(n, 4, 4, 2, 2, 2).permute(0, 1, 4, 2, 5, 3) \
         .reshape(n, 8, 16)
-    return pred_y.contiguous(), pred_c.contiguous()
+    return pred_y.to(torch.uint8).contiguous(), \
+        pred_c.to(torch.uint8).contiguous()

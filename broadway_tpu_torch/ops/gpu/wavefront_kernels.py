@@ -64,10 +64,13 @@ def last_grid(which: int) -> int:
 
 
 def set_max_ctas(n: int) -> int:
-    """For tests only: cap every wavefront launch at n CTAs (0 lifts the
-    cap) so that a small picture drives the more-rows-than-CTAs stride;
-    returns the previous cap. The cap is process-wide and not
-    thread-safe: no decoding path calls this."""
+    """A test-only knob, not part of the decoding interface: cap every
+    wavefront launch at n CTAs (0 lifts the cap) so that a small picture
+    drives the more-rows-than-CTAs stride; returns the previous cap. The
+    cap is one process-wide int read without a lock by every launch, so
+    it is not safe beside a decoder's slice-pool threads or a decoder
+    running on another thread: set it only while nothing else decodes.
+    No decoding path calls this."""
     return _build.load().bw_wavefront_set_max_ctas(n)
 
 

@@ -1,7 +1,8 @@
-"""Synthetic operands for the two wavefront kernels (K2 intra, K3
-deblock) at any MB geometry, made from a seed with numpy: what the card
-tests and ``chip_smoke.py`` feed to a kernel and to its plain version
-when no bitstream of that geometry is at hand.
+"""Synthetic operands for the kernels at any MB geometry, made from a
+seed with numpy: what the tests and ``chip_smoke.py`` feed to a kernel
+and to its plain version when no bitstream of that geometry or kind is at
+hand. K1 (motion compensation): ``mc_operands`` by case name. K2 (intra)
+and K3 (deblock): ``intra_operands`` / ``deblock_operands`` by ``kind``.
 
 ``kind`` is "intra" (every MB has work), "idle" (no MB has work: an
 all-inter picture for K2, all bS 0 for K3) or "mixed" (about one MB in
@@ -95,3 +96,81 @@ def deblock_operands(w_mbs: int, h_mbs: int, seed: int, kind: str = "mixed"):
             P[:, o + 1] = rng.randint(0, 19, n)            # beta
             P[:, o + 2:o + 5] = np.sort(rng.randint(0, 26, (n, 3)), axis=1)
     return P
+
+
+# ---------------------------------------------------------------------------
+# K1: vectors and reference slots by case
+# ---------------------------------------------------------------------------
+
+_SIDES = {"lo": -1, "mid": 0, "hi": 1}
+
+MC_CASES = tuple(
+    ["mixed_intra_inter", "sixteen_vectors", "random_slots_40",
+     "random_slots_300", "random_slots_4000"]
+    + [f"frac_{fy}{fx}_{how}" for fy in range(4) for fx in range(4)
+       for how in ("one", "blk")]
+    + [f"edge_{sy}_{sx}_{reach}" for sy in _SIDES for sx in _SIDES
+       for reach in ("near", "far")])
+
+
+def mc_operands(case: str, w_mbs: int, h_mbs: int, R: int):
+    """(mv [n,4,4,2] i32, ref_blk [n,4,4] i32) of one named case:
+
+    mixed_intra_inter  whole MBs with ref_blk -1 among inter MBs with one
+                       vector each, as a P picture has them
+    sixteen_vectors    every 4x4 block its own vector and slot
+    random_slots_S     per-block vectors up to S quarter-pels, per-block
+                       slots from -1 (predicts nothing) to R - 1
+    frac_YX_one|blk    every vector at quarter-pel fraction (X, Y); one
+                       vector for the MB, or another whole part per block
+    edge_SY_SX_near|far  every MB thrown at the picture's SY/SX side
+                       (lo, mid, hi) so that its window straddles the
+                       edge (near) or lies wholly beyond it (far), at a
+                       diagonal fraction; odd MBs with one vector, even
+                       MBs with their blocks pulled apart by a pel
+    """
+    n = w_mbs * h_mbs
+    rng = np.random.RandomState(
+        sum(ord(c) * (i + 1) for i, c in enumerate(case)))
+    one = (n, 1, 1)
+
+    def full(a):
+        return np.ascontiguousarray(
+            np.broadcast_to(a, (n, 4, 4) + a.shape[3:])).astype(np.int32)
+
+    parts = case.split("_")
+    if case == "mixed_intra_inter":
+        slot = rng.randint(0, R, one)
+        slot[rng.rand(n) < 0.4] = -1
+        slot[0], slot[-1] = -1, 0          # both kinds, whatever the draw
+        return full(rng.randint(-60, 61, one + (2,))), full(slot)
+    if case == "sixteen_vectors":
+        mv = rng.randint(-50, 51, (n, 4, 4, 2))
+        mv[..., 0] += 2 * np.arange(16).reshape(4, 4)   # 16 distinct ones
+        return full(mv), full(rng.randint(0, R, (n, 4, 4)))
+    if parts[0] == "random":
+        span = int(parts[2])
+        return (full(rng.randint(-span, span + 1, (n, 4, 4, 2))),
+                full(rng.randint(-1, R, (n, 4, 4))))
+    if parts[0] == "frac":
+        fy, fx = int(parts[1][0]), int(parts[1][1])
+        shape = (n, 4, 4, 2) if parts[2] == "blk" else one + (2,)
+        mv = rng.randint(-6, 7, shape) * 4 + np.array([fx, fy])
+        return full(mv), full(rng.randint(0, R, one))
+    if parts[0] == "edge":
+        sy, sx = _SIDES[parts[1]], _SIDES[parts[2]]
+        off = 40 if parts[3] == "far" else -8
+        mb = np.arange(n)
+        mbx, mby = mb % w_mbs, mb // w_mbs
+        tx = {-1: -16 - off + 0 * mbx, 0: 16 * mbx,
+              1: 16 * w_mbs + off + 0 * mbx}[sx]
+        ty = {-1: -16 - off + 0 * mby, 0: 16 * mby,
+              1: 16 * h_mbs + off + 0 * mby}[sy]
+        mv = np.zeros((n, 4, 4, 2), np.int64)
+        mv[..., 0] = (4 * (tx - 16 * mbx) + 1)[:, None, None]
+        mv[..., 1] = (4 * (ty - 16 * mby) + 3)[:, None, None]
+        apart = (mb % 2 == 0)[:, None, None]
+        mv[..., 0] += 4 * np.arange(4)[None, None, :] * apart
+        mv[..., 1] += 4 * np.arange(4)[None, :, None] * apart
+        return full(mv), full(rng.randint(0, R, one))
+    raise ValueError(f"unknown MC case {case!r}; one of {MC_CASES}")

@@ -15,9 +15,14 @@ failure is caught):
      shapes: the CUDA kernel against its plain torch version on the same
      inputs (byte equality), both timed with CUDA events; the kernel's
      bound from this run's inputs (distinct bytes once each, or integer
-     operations); the wavefront hand-off floor (the scaffold of K2/K3
-     with an empty MB body over 120x68 MBs); the kernels' record names
-     the larger of the two as the bound each kernel is held to
+     operations; K1's counts only the blocks that predict); K1 also
+     beside its first form (csrc/mc_pel.cu, "ms_before"), beside an
+     empty kernel of its grid and block (its launch floor,
+     csrc/probe.cu), and on two synthetic 1080p vector fields with 16
+     different vectors per MB, where it is slowest; the wavefront
+     hand-off floor (the scaffold of K2/K3 with an empty MB body over
+     120x68 MBs); each picture of each kernel is held to the larger of
+     its bound and its floor, ratio printed
   5. K2 and K3 at 4096x2176 (256x136 MBs, every MB with work, synthetic
      operands from a seed): kernel against plain over the whole picture
   6. the per-picture step on the P picture: host enqueue, device span,
@@ -26,7 +31,14 @@ failure is caught):
      over the stream, every frame byte-equal to the port's NumPy path
      (Decoder(recon="numpy")); every kernel must have launched on that
      run, K2 and K3 once per picture on the device; then timed warm
-     passes (median frames/s); neither JAX nor the JAX package may load
+     passes (median frames/s)
+  8. the entry points on the same stream: MP4Player(device="cuda",
+     render="rgb_int") on the port's own mux of it (YUV byte-equal to
+     the NumPy path's frames, RGBA byte-equal to the asm.js formula in
+     NumPy, K1/K2/K3 launched once per picture), SoftAvc(device="cuda")
+     fed 64 KB buffers (the same bytes out, EOS on the last), and the
+     YUV->RGB converters timed at 1920x1088; neither JAX nor the JAX
+     package may load
 The last three lines of stdout: the kernels' JSON record, the
 nvidia-smi name/power-limit line, and {"ok": true, "device": ...}.
 Exits non-zero and prints no result without CUDA.
@@ -45,6 +57,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 N_FRAMES = 4
 WARM_PASSES = 5
 TOL = 0      # decoding is integer-exact: every comparison is byte equality
+K1_REPS = 50   # launches per timing of K1 (tens of microseconds each)
+HOLD_MS = 40.0               # stream hold ahead of the short timings
+SM_CLOCK_KHZ = 1.98e6        # H100 SXM boost clock: cycles per ms, at most
 BIG = (256, 136)             # 4096x2176: more rows than SMs, every MB busy
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 INT_OPS_PER_S = 33.5e12      # int32 outside the tensor cores: half of 67 T
@@ -64,17 +79,31 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, hold_ms: float = 0.0) -> float:
     """Mean milliseconds per call of fn on the current stream (CUDA
-    events around `reps` calls after one warm-up call)."""
+    events around `reps` calls after one warm-up call). With hold_ms the
+    stream is first kept busy for about that long (one spinning thread),
+    so that the calls queue up behind it and the events read the device
+    even where a call is shorter than its enqueue on the host: hold_ms
+    must exceed the host's time for the `reps` calls, which is checked."""
     import torch
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold_ms:
+        from broadway_tpu_torch.ops.gpu import probe
+        torch.cuda.synchronize()
+        held = torch.cuda.Event()
+        probe.hold_stream(int(hold_ms * SM_CLOCK_KHZ), "cuda")
+        held.record()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
+    if hold_ms and held.query():
+        raise AssertionError(f"the stream was held for {hold_ms} ms but "
+                             f"enqueueing {reps} calls took longer: the "
+                             "timing would read the host")
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -99,7 +128,8 @@ def _mark(mask, slot, rows, cols, keep, H: int, W: int) -> None:
 
 def k1_distinct_ref_pels(ref_y, ref_c, mv, rb, w: int, h: int) -> int:
     """Reference pels that this picture's vectors point at, each counted
-    once: per 4x4 block the 4x4 window at its integer vector, widened to
+    once; a block with ref_blk < 0 predicts nothing and points at none.
+    Per predicting 4x4 block the 4x4 window at its integer vector, widened to
     9 columns / 9 rows where the vector has a horizontal / vertical
     fraction (a 5-wide cross where only the two half-pel lines are
     averaged); per 2x2 chroma block 2 or 3 columns and rows, in both
@@ -116,6 +146,7 @@ def k1_distinct_ref_pels(ref_y, ref_c, mv, rb, w: int, h: int) -> int:
     px, py = px.reshape(-1), py.reshape(-1)
     mvx = mv[..., 0].reshape(-1).long()
     mvy = mv[..., 1].reshape(-1).long()
+    used = rb.reshape(-1) >= 0
     slot = rb.reshape(-1).clamp(0, R - 1).long()
     fx, fy = mvx & 3, mvy & 3
     cross = (fx & 1).bool() & (fy & 1).bool()   # b and h averaged, no j
@@ -125,7 +156,7 @@ def k1_distinct_ref_pels(ref_y, ref_c, mv, rb, w: int, h: int) -> int:
         row_ok = (fy != 0) if not 2 <= dy <= 5 else torch.ones_like(cross)
         for dx in range(9):
             col_ok = (fx != 0) if not 2 <= dx <= 5 else torch.ones_like(cross)
-            keep = row_ok & col_ok
+            keep = used & row_ok & col_ok
             if not (2 <= dy <= 6 or 2 <= dx <= 6):
                 keep = keep & ~cross
             _mark(mask, slot, y0 + dy, x0 + dx, keep, H, W)
@@ -138,19 +169,101 @@ def k1_distinct_ref_pels(ref_y, ref_c, mv, rb, w: int, h: int) -> int:
         row_ok = ((mvy & 7) != 0) if dy == 2 else always
         for dx in range(3):
             col_ok = ((mvx & 7) != 0) if dx == 2 else always
-            _mark(mask, slot, cy0 + dy, cx0 + dx, row_ok & col_ok, Hc, Wc)
+            _mark(mask, slot, cy0 + dy, cx0 + dx, used & row_ok & col_ok, Hc,
+                  Wc)
     return luma + 2 * int(mask.sum())
 
 
 def k1_bound(ref_y, ref_c, mv, rb, out, w: int, h: int):
-    # the reference pels the vectors point at, once each; the vectors and
-    # reference indices; one byte per predicted pel (values are 0..255:
-    # that the port hands them on as int32 is its choice, not the
-    # function's); ~40 integer operations per predicted pel (6-tap both
-    # ways, rounding, clip)
+    # the reference pels the predicting blocks' vectors point at, once
+    # each; the vectors and reference indices; one byte per pel written
+    # (a block with ref_blk < 0 writes 0 and reads no reference); ~40
+    # integer operations per PREDICTED pel (6-tap both ways, rounding,
+    # clip): 16 luma + 8 chroma pels for each block with ref_blk >= 0,
+    # none for the others, so an all-intra picture is bound by its bytes
     pels = out[0].numel() + out[1].numel()
+    predicted = 24 * int((rb >= 0).sum())
     return bound(k1_distinct_ref_pels(ref_y, ref_c, mv, rb, w, h)
-                 + _nbytes(mv, rb) + pels, 40 * pels)
+                 + _nbytes(mv, rb) + pels, 40 * predicted)
+
+
+def k1_extras(r, label, ref_y, ref_c, mv, rb, got, w: int, h: int,
+              reps: int) -> None:
+    """K1 beside its first form (one thread per pel, csrc/mc_pel.cu) on
+    the same inputs: equal wherever a block predicts, and timed the same
+    way ("ms_before"); and beside an empty kernel of the same grid and
+    block ("bound_launch_ms": what launching K1's CTAs for w * h MBs
+    costs whatever they compute)."""
+    import torch
+
+    from broadway_tpu_torch.ops.gpu import mc_kernel as K1
+    from broadway_tpu_torch.ops.gpu import probe
+    pel = K1.mc_predict_pel(ref_y, ref_c, mv, rb, w, h)
+    used = rb >= 0
+    uy = used.repeat_interleave(4, 1).repeat_interleave(4, 2)
+    uc = used.repeat_interleave(2, 1).repeat_interleave(4, 2)
+    if not (torch.equal(got[0][uy].int(), pel[0][uy])
+            and torch.equal(got[1][uc].int(), pel[1][uc])):
+        raise AssertionError(f"K1_mc differs from its first form on the "
+                             f"{label} picture")
+    before = cuda_ms(lambda: K1.mc_predict_pel(ref_y, ref_c, mv, rb, w, h),
+                     reps, HOLD_MS)
+    ctas, threads = K1.launch_shape(w * h)
+    floor = cuda_ms(lambda: probe.launch_probe(ctas, threads, ref_y.device),
+                    reps, HOLD_MS)
+    r.setdefault("ms_before", []).append(before)
+    r.setdefault("bound_launch_ms", []).append(floor)
+    r["per_picture"][label].update(
+        ms_before=before, bound_launch_ms=floor,
+        predicting_blocks=int(used.sum()))
+    log(f"  K1_mc {label}: first form {before:.4f} ms, empty launch of "
+        f"K1's grid for {w * h} MBs ({ctas} CTAs of {threads}) {floor:.5f} "
+        f"ms, {int(used.sum())} of "
+        f"{used.numel()} blocks predict")
+
+
+K1_SYNTHETIC = ("sixteen_vectors", "random_slots_300")
+
+
+def k1_synthetic_phase(device, w: int = 120, h: int = 68, R: int = 3,
+                       reps: int = K1_REPS) -> dict:
+    """K1 where it is slowest: every MB of a 1080p picture with 16
+    different vectors, fractions and slots (tools.synth.mc_operands),
+    which the realistic stream hardly has. Kernel against plain (byte
+    equality), kernel and first form timed; not part of the means."""
+    import numpy as np
+    import torch
+
+    from broadway_tpu_torch.ops.gpu import inter
+    from broadway_tpu_torch.ops.gpu import mc_kernel as K1
+    from broadway_tpu_torch.tools import synth
+
+    rng = np.random.RandomState(68)
+    ref_y = torch.from_numpy(rng.randint(0, 256, (R, 16 * h, 16 * w),
+                                         dtype=np.uint8)).to(device)
+    ref_c = torch.from_numpy(rng.randint(0, 256, (R, 2, 8 * h, 8 * w),
+                                         dtype=np.uint8)).to(device)
+    out = {}
+    for case in K1_SYNTHETIC:
+        mv, rb = (torch.from_numpy(a).to(device)
+                  for a in synth.mc_operands(case, w, h, R))
+        args = (ref_y, ref_c, mv, rb, w, h)
+        got = K1.mc_predict(*args)
+        want = inter.mc_predict_plain(*args)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"K1_mc differs from its plain version on "
+                                 f"the synthetic case {case}")
+        bnd = k1_bound(ref_y, ref_c, mv, rb, got, w, h)
+        ms = cuda_ms(lambda: K1.mc_predict(*args), reps, HOLD_MS)
+        before = cuda_ms(lambda: K1.mc_predict_pel(*args), reps, HOLD_MS)
+        out[case] = {"ms": ms, "ms_before": before,
+                     "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+                     "ms_over_bound": ms / bnd["bound_ms"]}
+        log(f"  K1_mc synthetic {case} ({w}x{h} MBs): kernel {ms:.4f} ms = "
+            f"{ms / bnd['bound_ms']:.2f}x its bound {bnd['bound_ms']:.5f} ms "
+            f"({bnd['bound_by']}), first form {before:.4f} ms, byte-equal to "
+            "plain")
+    return out
 
 
 def k2_bound(Pi, n_mbs: int):
@@ -190,7 +303,8 @@ def kernel_phase(pictures, device, seed: int = 0, reps: int = 10,
                "bound_bytes": [], "bound_by": None, "per_picture": {}}
            for k in KERNELS}
 
-    def record(name, got, want, run, run_plain, label, bnd, busy=None):
+    def record(name, got, want, run, run_plain, label, bnd, busy=None,
+               reps=reps, hold_ms=0.0):
         err = max(int((g.to(torch.int32) - w.to(torch.int32)).abs().max())
                   for g, w in zip(got, want))
         r = res[name]
@@ -198,15 +312,18 @@ def kernel_phase(pictures, device, seed: int = 0, reps: int = 10,
         if err > TOL:
             raise AssertionError(f"{name} differs from its plain version "
                                  f"on the {label} picture: max |err| {err}")
+        if bnd["bound_ms"] >= max(r["bound_ms"], default=0.0):
+            r["bound_by"] = bnd["bound_by"]     # of the larger bound
         r["bound_ms"].append(bnd["bound_ms"])
         r["bound_bytes"].append(bnd["bound_bytes"])
-        r["bound_by"] = bnd["bound_by"]
         if on_cuda:
-            ms, pms = cuda_ms(run, reps), cuda_ms(run_plain, plain_reps)
+            ms = cuda_ms(run, reps, hold_ms)
+            pms = cuda_ms(run_plain, plain_reps)
             r["ms"].append(ms)
             r["plain_ms"].append(pms)
             r["per_picture"][label] = {"ms": ms, "plain_ms": pms,
                                        "bound_ms": bnd["bound_ms"],
+                                       "bound_by": bnd["bound_by"],
                                        "busy_mbs": busy}
             log(f"  {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
                 f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}, "
@@ -231,7 +348,11 @@ def kernel_phase(pictures, device, seed: int = 0, reps: int = 10,
         record("K1_mc", got, want,
                lambda: K1.mc_predict(ref_y, ref_c, mv, rb, w, h),
                lambda: inter.mc_predict_plain(ref_y, ref_c, mv, rb, w, h),
-               label, k1_bound(ref_y, ref_c, mv, rb, got, w, h))
+               label, k1_bound(ref_y, ref_c, mv, rb, got, w, h),
+               reps=K1_REPS, hold_ms=HOLD_MS)
+        if on_cuda:
+            k1_extras(res["K1_mc"], label, ref_y, ref_c, mv, rb, got, w, h,
+                      K1_REPS)
 
         Y0, C0 = decode_picture(arrs, ref_y, ref_c, w, h, co, run_stages=1)
         RY, RC = residual_stage(arrs, co)
@@ -259,8 +380,10 @@ def kernel_phase(pictures, device, seed: int = 0, reps: int = 10,
                label, bnd, busy)
 
     for r in res.values():
-        for k in ("ms", "plain_ms", "bound_ms", "bound_bytes"):
-            r[k] = sum(r[k]) / len(r[k]) if r[k] else None
+        for k in ("ms", "plain_ms", "bound_ms", "bound_bytes", "ms_before",
+                  "bound_launch_ms"):
+            if k in r:
+                r[k] = sum(r[k]) / len(r[k]) if r[k] else None
     return res
 
 
@@ -419,7 +542,8 @@ def decode_port(data: bytes, device, parallel_slices: int = 8, **kw):
 def e2e_phase(data: bytes, device):
     """Port vs its NumPy path on the whole stream; returns (launch counts
     of the port's run, device launches per picture of K2/K3 on that run,
-    median frames/s of the warm passes, frame count, NumPy seconds)."""
+    median frames/s of the warm passes, the NumPy path's frames as
+    bytes, NumPy seconds)."""
     from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
 
     reset_launch_counts()
@@ -464,7 +588,128 @@ def e2e_phase(data: bytes, device):
     fps = sorted(rates)[len(rates) // 2]
     log(f"  median of {WARM_PASSES} warm passes: {fps:.2f} frames/s "
         f"(host probe: NumPy path {numpy_s:.1f} s for the same frames)")
-    return counts, per_pic, fps, len(got), numpy_s
+    return counts, per_pic, fps, want, numpy_s
+
+
+def rgba_int_numpy(frame: bytes, w: int, h: int):
+    """The asm.js converter's integer formula (Player/Decoder.js
+    yuv2rgbcalc) on one YUV420 frame, in NumPy: [h, w, 4] uint8."""
+    import numpy as np
+    a = np.frombuffer(frame, np.uint8).astype(np.int32)
+    y = a[:w * h].reshape(h, w)
+    u = a[w * h:w * h * 5 // 4].reshape(h // 2, w // 2)
+    v = a[w * h * 5 // 4:].reshape(h // 2, w // 2)
+    u = u.repeat(2, axis=0).repeat(2, axis=1) - 128
+    v = v.repeat(2, axis=0).repeat(2, axis=1) - 128
+    a0 = 1192 * (y - 16)
+    r = (a0 + 1634 * v) >> 10
+    g = (a0 - 832 * v - 400 * u) >> 10
+    b = (a0 + 2066 * u) >> 10
+    return np.stack([r, g, b, np.full_like(r, 255)],
+                    axis=-1).clip(0, 255).astype(np.uint8)
+
+
+def _require_one_launch_per_picture(path: str, counts: dict, n: int) -> None:
+    for name, c in counts.items():
+        if c != n:
+            raise AssertionError(f"{name}: {c} launches on the {path} path "
+                                 f"for {n} pictures")
+
+
+def entry_phase(data: bytes, want, w: int, h: int, device, smi: str) -> dict:
+    """The public entry points on the card, on the stream whose frames
+    the NumPy path already decoded (`want`, bytes): the MP4 player with
+    the integer RGBA converter, the OMX component, and the converters'
+    times. Returns the launch counts of each path and the times."""
+    import numpy as np
+    import torch
+
+    from broadway_tpu_torch.omx import Event, SoftAvc
+    from broadway_tpu_torch.player.player import MP4Player
+    from broadway_tpu_torch.player.yuv2rgb import (yuv420_to_rgba_int,
+                                                   yuv_to_rgb_rec709)
+    from broadway_tpu_torch.tools import mp4mux
+
+    n = len(want)
+    kind = torch.device(device).type
+    mp4 = mp4mux.mux(data, w, h)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    player = MP4Player(mp4, device=device, render="rgb_int").play()
+    torch.cuda.synchronize()
+    play_s = time.perf_counter() - t0
+    player_counts = launch_counts()
+    player.decoder.release()
+    pics = player.frames
+    if len(pics) != n or player.stats.total_frames != n:
+        raise AssertionError(f"MP4Player gave {len(pics)} pictures, the "
+                             f"NumPy path {n}")
+    for i, (pic, ref) in enumerate(zip(pics, want)):
+        rgba = pic["rgba"]
+        if rgba.device.type != kind or rgba.dtype != torch.uint8:
+            raise AssertionError(f"picture {i}: RGBA is {rgba.dtype} on "
+                                 f"{rgba.device}, expected uint8 on {kind}")
+        if pic["frame"].tobytes() != ref:
+            raise AssertionError(f"MP4Player picture {i}: YUV differs from "
+                                 "the NumPy path")
+        if not np.array_equal(rgba.cpu().numpy(), rgba_int_numpy(ref, w, h)):
+            raise AssertionError(f"MP4Player picture {i}: RGBA differs from "
+                                 "the asm.js formula in NumPy")
+    _require_one_launch_per_picture("MP4Player", player_counts, n)
+    log(f"  MP4Player(device={device!r}, render='rgb_int'): {n} pictures in "
+        f"{play_s:.3f} s, YUV byte-equal to the NumPy path, RGBA byte-equal "
+        f"to the asm.js formula; wrapper launches {player_counts}")
+
+    events = []
+    reset_launch_counts()
+    comp = SoftAvc(device=device,
+                   event_cb=lambda ev, args: events.append((ev, args)))
+    outs = []
+
+    def drain():
+        while True:
+            if comp.output_port.enabled is False:
+                comp.reconfigure_output()     # acknowledge the new size
+            o = comp.dequeue_output()
+            if o is None:
+                return
+            outs.append(o)
+
+    chunk, pos = 64 * 1024, 0
+    while pos < len(data):
+        nxt = min(pos + chunk, len(data))
+        if comp.queue_input(data[pos:nxt], eos=(nxt == len(data))):
+            pos = nxt
+        drain()
+    drain()
+    torch.cuda.synchronize()
+    omx_counts = launch_counts()
+    comp._dec.release()
+    if not comp.eos_delivered:
+        raise AssertionError("SoftAvc never delivered EOS")
+    if [a for e, a in events if e is Event.PORT_SETTINGS_CHANGED] != [(w, h)]:
+        raise AssertionError(f"SoftAvc events: {events}")
+    if [o.data for o in outs] != list(want):
+        raise AssertionError("SoftAvc output buffers differ from the NumPy "
+                             "path's frames")
+    if [o.eos for o in outs] != [False] * (n - 1) + [True]:
+        raise AssertionError(f"SoftAvc EOS flags: {[o.eos for o in outs]}")
+    if any(o.frame.yuv.device.type != kind for o in outs):
+        raise AssertionError(f"a SoftAvc output frame is not on {kind}")
+    _require_one_launch_per_picture("SoftAvc", omx_counts, n)
+    log(f"  SoftAvc(device={device!r}): {-(-len(data) // chunk)} input "
+        f"buffers of <= {chunk} B, {len(outs)} output buffers byte-equal to the "
+        f"NumPy path, EOS on the last; wrapper launches {omx_counts}")
+
+    f = pics[1]["frame"]
+    planes = (f.dev_y, f.dev_cb, f.dev_cr)
+    ms_int = cuda_ms(lambda: yuv420_to_rgba_int(*planes), 20, HOLD_MS)
+    ms_709 = cuda_ms(lambda: yuv_to_rgb_rec709(*planes), 20, HOLD_MS)
+    log(f"  YUV->RGB at {w}x{h} on {smi} (torch ops, CUDA events around 20 "
+        f"calls queued behind a held stream): yuv420_to_rgba_int "
+        f"{ms_int:.4f} ms, yuv_to_rgb_rec709 {ms_709:.4f} ms")
+    return {"player_launches": player_counts, "omx_launches": omx_counts,
+            "player_s": play_s, "rgba_int_ms": ms_int, "rec709_ms": ms_709}
 
 
 def check_no_jax() -> None:
@@ -528,6 +773,7 @@ def main() -> int:
     if len(pictures) < 2:
         raise RuntimeError("the stream has fewer than 2 pictures")
     kres = kernel_phase(pictures, "cuda")
+    k1_synth = k1_synthetic_phase("cuda")
     probe = handoff_phase(120, 68, "cuda")
 
     log(f"[5] K2 and K3 at {16 * BIG[0]}x{16 * BIG[1]}")
@@ -537,7 +783,11 @@ def main() -> int:
     step = step_phase(pictures[1], "cuda")
 
     log("[7] end to end")
-    counts, per_pic, fps, n, numpy_s = e2e_phase(data, "cuda")
+    counts, per_pic, fps, want_frames, numpy_s = e2e_phase(data, "cuda")
+    n = len(want_frames)
+
+    log("[8] the entry points: MP4Player, SoftAvc, YUV->RGB")
+    entry = entry_phase(data, want_frames, 1920, 1088, "cuda", smi)
     check_no_jax()
     log("    neither jax nor broadway_tpu in sys.modules")
 
@@ -545,8 +795,28 @@ def main() -> int:
     for name, (src, tpu) in KERNELS.items():
         r = kres[name]
         wave = name != "K1_mc"
-        floor = probe["handoff_floor_ms"]
-        held = max(r["bound_ms"], floor) if wave else r["bound_ms"]
+        # the floor beside the byte/operation bound: the hand-off chain
+        # for the wavefront kernels, the empty launch of its grid for K1.
+        # Each picture is held to the larger of ITS bound and the floor;
+        # the ratios are per picture, never against a mean over pictures
+        # whose work differs. The hand-off floor is the chain of a picture
+        # with work in every MB (the IDR here); a picture whose idle MBs
+        # wait for nothing can run under it.
+        for label, pp in r["per_picture"].items():
+            floor = (probe["handoff_floor_ms"] if wave
+                     else pp["bound_launch_ms"])
+            pp["bound_held_to_ms"] = max(pp["bound_ms"], floor)
+            pp["bound_held_to_by"] = (
+                ("hand-offs" if wave else "launch")
+                if floor > pp["bound_ms"] else pp["bound_by"])
+            pp["ms_over_bound_held_to"] = pp["ms"] / pp["bound_held_to_ms"]
+            log(f"    {name} {label}: {pp['ms']:.5f} ms = "
+                f"{pp['ms_over_bound_held_to']:.2f}x the bound it is held "
+                f"to, {pp['bound_held_to_ms']:.5f} ms by "
+                f"{pp['bound_held_to_by']} (bound_ms {pp['bound_ms']:.5f} by "
+                f"{pp['bound_by']}, floor {floor:.5f})")
+        floor = probe["handoff_floor_ms"] if wave else r["bound_launch_ms"]
+        held = [pp["bound_held_to_ms"] for pp in r["per_picture"].values()]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "launches": counts[name], "max_abs_err": r["max_abs_err"],
@@ -556,24 +826,24 @@ def main() -> int:
             "device_launches_per_picture": per_pic[name],
             "bound_bytes": r["bound_bytes"],
             "bound_handoff_ms": floor if wave else None,
-            # the bound that binds, to which later work is held: the
-            # larger of bound_ms and the hand-off floor. The floor is the
-            # chain of a picture with work in every MB (the IDR here); a
-            # picture whose idle MBs wait for nothing can run under it.
-            "bound_held_to_ms": held,
-            "bound_held_to_by": ("hand-offs" if wave and floor > r["bound_ms"]
-                                 else r["bound_by"]),
-            "ms_over_bound_held_to": r["ms"] / held,
-            "idr_ms_over_bound_held_to":
-                r["per_picture"]["IDR"]["ms"]
-                / max(r["per_picture"]["IDR"]["bound_ms"],
-                      floor if wave else 0.0),
+            "bound_launch_ms": None if wave else floor,
+            # K1's first form (csrc/mc_pel.cu) timed in this run
+            "ms_before": r.get("ms_before"),
+            # means over the pictures, like ms and bound_ms; what each
+            # picture is held to, by what, and its ratio: per_picture
+            "bound_held_to_ms": sum(held) / len(held),
+            "launches_player_path": entry["player_launches"][name],
+            "launches_omx_path": entry["omx_launches"][name],
             "per_picture": r["per_picture"],
+            "synthetic": None if wave else k1_synth,
             "big": big.get(name)})
     record = {"kernels": kernels, "handoff": probe,
               "big_handoff_floor_ms": big["handoff_floor_ms"],
               "step": step, "e2e_fps": fps, "frames": n,
-              "numpy_path_s": numpy_s}
+              "numpy_path_s": numpy_s,
+              "yuv2rgb": {"rgba_int_ms": entry["rgba_int_ms"],
+                          "rec709_ms": entry["rec709_ms"],
+                          "width": 1920, "height": 1088, "card": smi}}
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

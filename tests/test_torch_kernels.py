@@ -20,6 +20,7 @@ from broadway_tpu_torch.core.packed import pack_stream, unpack_arrs_v2
 from broadway_tpu_torch.core.recon import decode_picture
 from broadway_tpu_torch.ops.gpu import deblock, inter, intra
 from broadway_tpu_torch.ops.gpu import mc_kernel as K1
+from broadway_tpu_torch.ops.gpu import probe
 from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
 from broadway_tpu_torch.ops.gpu.residual import residual_stage
 from broadway_tpu_torch.tools import streams, synth
@@ -59,16 +60,65 @@ def _inputs(name, dev):
         yield arrs, lay.w, lay.h, co, ref_y, ref_c
 
 
+def _check_k1(ref_y, ref_c, mv, rb, w, h):
+    """K1 against its plain version (all bytes); blocks with ref_blk < 0
+    read 0."""
+    n0 = K1.mc_predict.launches
+    got = K1.mc_predict(ref_y, ref_c, mv, rb, w, h)
+    want = inter.mc_predict_plain(ref_y, ref_c, mv, rb, w, h)
+    torch.cuda.synchronize()
+    assert K1.mc_predict.launches == n0 + 1
+    assert got[0].dtype == got[1].dtype == torch.uint8
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    used = rb >= 0
+    uy = used.repeat_interleave(4, 1).repeat_interleave(4, 2)
+    uc = used.repeat_interleave(2, 1).repeat_interleave(4, 2)
+    assert not got[0][~uy].any() and not got[1][~uc].any()
+
+
 @pytest.mark.parametrize("name", sorted(STREAMS))
 def test_k1_mc_equals_plain(cuda, name):
     for arrs, w, h, _, ref_y, ref_c in _inputs(name, cuda):
-        n0 = K1.mc_predict.launches
-        got = K1.mc_predict(ref_y, ref_c, arrs["mv"], arrs["ref_blk"], w, h)
-        want = inter.mc_predict_plain(ref_y, ref_c, arrs["mv"],
-                                      arrs["ref_blk"], w, h)
-        torch.cuda.synchronize()
-        assert K1.mc_predict.launches == n0 + 1
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        _check_k1(ref_y, ref_c, arrs["mv"].contiguous(),
+                  arrs["ref_blk"].contiguous(), w, h)
+
+
+@pytest.mark.parametrize("case", synth.MC_CASES)
+def test_k1_mc_case_equals_plain(cuda, case):
+    """The cases of tests/test_torch_mc.py (mixed intra/inter MBs, 16
+    vectors per MB, every fraction, every edge and corner), here for the
+    kernel; 11x7 MBs so that edge cases meet odd and even MBs."""
+    w, h, R = 11, 7, 3
+    rng = np.random.RandomState(len(case))
+    mv, rb = (torch.from_numpy(a).to(cuda)
+              for a in synth.mc_operands(case, w, h, R))
+    ref_y = torch.from_numpy(rng.randint(
+        0, 256, (R, 16 * h, 16 * w), dtype=np.uint8)).to(cuda)
+    ref_c = torch.from_numpy(rng.randint(
+        0, 256, (R, 2, 8 * h, 8 * w), dtype=np.uint8)).to(cuda)
+    _check_k1(ref_y, ref_c, mv, rb, w, h)
+
+
+def test_k1_all_intra_picture_is_zero(cuda):
+    """No block predicts: every CTA leaves after reading ref_blk, and the
+    outputs (allocated uninitialised) are 0 all the same."""
+    w, h, R = 9, 5, 2
+    n = w * h
+    ref_y = torch.full((R, 16 * h, 16 * w), 200, dtype=torch.uint8,
+                       device=cuda)
+    ref_c = torch.full((R, 2, 8 * h, 8 * w), 200, dtype=torch.uint8,
+                       device=cuda)
+    mv = torch.full((n, 4, 4, 2), 7, dtype=torch.int32, device=cuda)
+    rb = torch.full((n, 4, 4), -1, dtype=torch.int32, device=cuda)
+    torch.full((n, 16, 16), 99, dtype=torch.uint8, device=cuda)  # dirty pool
+    _check_k1(ref_y, ref_c, mv, rb, w, h)
+
+
+def test_k1_launch_probe_runs(cuda):
+    ctas, threads = K1.launch_shape(8160)
+    assert ctas * (threads // 32) >= 8160     # a warp per MB
+    probe.launch_probe(ctas, threads, cuda)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("name", sorted(STREAMS))

@@ -3,7 +3,11 @@ CPU tensors) equals the JAX package's ``recon_tpu.mc_predict_xla`` on
 wild-MV streams: the port clamps every window coordinate into unpadded
 planes where JAX clips window origins into PAD-24 edge-replicated ones,
 and the two must agree however far outside the picture a vector points.
-Exact."""
+Exact, on every 4x4 block that predicts something (``ref_blk >= 0``). A
+block with ``ref_blk < 0`` (intra MB) predicts nothing: the port writes
+0 there, the JAX package a value that nothing ever reads, so those
+blocks are required to be 0 and left out of the comparison. Outputs are
+uint8."""
 
 import numpy as np
 import pytest
@@ -18,6 +22,7 @@ from broadway_tpu.core import recon_tpu as RT  # noqa: E402
 from broadway_tpu.ops.tpu import mc_pallas as K_mcp  # noqa: E402
 from broadway_tpu_torch.ops.gpu import inter  # noqa: E402
 from broadway_tpu_torch.ops.gpu import mc_kernel as K1  # noqa: E402
+from broadway_tpu_torch.tools import synth  # noqa: E402
 
 _mc_xla = jax.jit(RT.mc_predict_xla, static_argnames=("w_mbs", "h_mbs"))
 
@@ -34,15 +39,28 @@ def _refs(w, h, R, seed):
     return torch.from_numpy(y), torch.from_numpy(c), jy, jc
 
 
+def _block_masks(ref_blk):
+    """ref_blk [n, 4, 4] -> boolean masks of pred_y [n, 16, 16] and
+    pred_c [n, 8, 16] that are true where the block predicts."""
+    used = ref_blk >= 0
+    return (np.repeat(np.repeat(used, 4, axis=1), 4, axis=2),
+            np.repeat(np.repeat(used, 2, axis=1), 4, axis=2))
+
+
 def _compare(mv, ref_blk, w, h, R, seed):
     ty, tc, jy, jc = _refs(w, h, R, seed)
     want_y, want_c = _mc_xla(jy, jc, jax.numpy.asarray(mv),
                              jax.numpy.asarray(ref_blk), w_mbs=w, h_mbs=h)
     got_y, got_c = K1.mc_predict(ty, tc, torch.from_numpy(mv),
                                  torch.from_numpy(ref_blk), w, h)
-    assert got_y.dtype == got_c.dtype == torch.int32
-    assert np.array_equal(got_y.numpy(), np.asarray(want_y))
-    assert np.array_equal(got_c.numpy(), np.asarray(want_c))
+    assert got_y.dtype == got_c.dtype == torch.uint8
+    assert got_y.shape == (w * h, 16, 16) and got_c.shape == (w * h, 8, 16)
+    my, mc = _block_masks(ref_blk)
+    got_y, got_c = got_y.numpy(), got_c.numpy()
+    assert np.array_equal(got_y[my], np.asarray(want_y)[my])
+    assert np.array_equal(got_c[mc], np.asarray(want_c)[mc])
+    assert not got_y[~my].any() and not got_c[~mc].any()
+    return int(my.sum())
 
 
 @pytest.mark.parametrize("w,h,mvd_range,seed,multi_ref", [
@@ -72,6 +90,27 @@ def test_plain_mc_equals_jax_on_random_vectors(span):
     mv = rng.randint(-span, span + 1, (w * h, 4, 4, 2)).astype(np.int32)
     ref_blk = rng.randint(-1, R, (w * h, 4, 4)).astype(np.int32)
     _compare(mv, ref_blk, w, h, R, seed=span)
+
+
+@pytest.mark.parametrize("case", synth.MC_CASES)
+def test_plain_mc_equals_jax_on_case(case):
+    """The named cases of ``synth.mc_operands`` (mixed intra/inter MBs,
+    16 different vectors per MB, each of the 16 fraction cases with one
+    vector per MB and with one per block, windows across every picture
+    edge and corner), the same that the card tests give the kernel."""
+    w, h, R = 5, 3, 3
+    mv, ref_blk = synth.mc_operands(case, w, h, R)
+    used = _compare(mv, ref_blk, w, h, R, seed=len(case))
+    assert used > 0
+    if case == "mixed_intra_inter":
+        assert used < w * h * 256
+    if case == "sixteen_vectors":
+        assert all(len({tuple(v) for v in m.reshape(16, 2)}) == 16
+                   for m in mv)
+    if case.startswith("frac"):
+        fy, fx = int(case[5]), int(case[6])
+        assert ((mv[..., 0] & 3) == fx).all()
+        assert ((mv[..., 1] & 3) == fy).all()
 
 
 def test_wrapper_takes_plain_version_on_cpu():

@@ -109,6 +109,10 @@ def test_decoder_raises_without_native_library(monkeypatch, tmp_path):
 def test_native_frontend_never_gives_way_to_python(monkeypatch, tmp_path,
                                                    frontend):
     _no_library(monkeypatch, tmp_path, str(tmp_path / "no-such-compiler"))
+    if frontend == "auto":      # no alias: an unknown name is refused
+        with pytest.raises(ValueError, match="unknown frontend"):
+            Decoder(device="cpu", frontend=frontend, recon="numpy")
+        return
     with pytest.raises(RuntimeError, match="not found"):
         Decoder(device="cpu", frontend=frontend, recon="numpy")
 

@@ -1,6 +1,7 @@
 """The torch port never imports JAX nor anything of the JAX package
 (``broadway_tpu``): not at import, not while making a stream, not while
-decoding, and chip_smoke.py neither. Checked in fresh interpreters, so
+decoding through the engine or the public entry points (API, OMX
+component, MP4 player, dectest), and chip_smoke.py neither. Checked in fresh interpreters, so
 nothing a test process imported earlier can hide an import."""
 
 import os
@@ -31,6 +32,25 @@ for kw in ({}, {"recon": "numpy"}, {"frontend": "python"}):
     outs = Decoder(device="cpu", **kw).decode_annexb(data)
     assert len(outs) == 3 and all(
         len(o.frame.tobytes()) == 64 * 48 * 3 // 2 for o in outs)
+# the public entry points: API, OMX component, MP4 player, dectest
+from broadway_tpu_torch.omx import SoftAvc
+from broadway_tpu_torch.player.player import MP4Player
+from broadway_tpu_torch.tools import dectest, mp4mux
+c = SoftAvc(device="cpu")
+c.queue_input(data, eos=True)
+c.reconfigure_output()
+n = 0
+while c.dequeue_output() is not None:
+    n += 1
+assert n == 3 and c.eos_delivered
+p = MP4Player(mp4mux.mux(data, 64, 48), device="cpu", render="rgb_int").play()
+assert len(p.frames) == 3 and tuple(p.frames[0]["rgba"].shape) == (48, 64, 4)
+import tempfile, os
+with tempfile.TemporaryDirectory() as d:
+    with open(os.path.join(d, "s.h264"), "wb") as f:
+        f.write(data)
+    assert dectest.main(["dectest", "-Onone", "-B", "cpu",
+                         os.path.join(d, "s.h264")]) == 0
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "broadway_tpu"))
 assert not bad, bad
