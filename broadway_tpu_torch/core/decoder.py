@@ -19,15 +19,20 @@ imports nothing of that package:
            host instead, the reference inside the port
   Stage C  frame state          -> DPB / POC / output ordering (core/)
 Frame groups (``group_frames=G``) are ported: G pictures run as one
-captured CUDA graph (core/graphs.py), and their frames are lazy. The JAX
-package's async upload pump and compile cache have no counterpart here.
+captured CUDA graph (core/graphs.py), and their frames are lazy. So is the
+dispatch pump (``async_pump``): the upload and the per-picture step of
+each v2 picture run on one worker thread, in submission order, beside the
+feed thread's parse of the next picture. The JAX package's compile cache
+has no counterpart here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import threading
+from concurrent import futures
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
@@ -134,7 +139,8 @@ class Decoder:
                  no_reordering: bool = False, frontend: str = "native",
                  recon: str = "torch", recon_strategy=None,
                  pack: str = "v2", group_frames: int = 0,
-                 prefetch_outputs: bool = False) -> None:
+                 prefetch_outputs: bool = False,
+                 async_pump: Optional[bool] = None) -> None:
         # frontend: "native" (the C++ parser of csrc/frontend.cpp; built
         # at first use, and a failed build raises) or "python" (the
         # readable parser of bitstream/, only on request).
@@ -165,6 +171,17 @@ class Decoder:
         # picture.
         # prefetch_outputs: start each output frame's device-to-host copy
         # (TorchFrame.start_fetch) as soon as it reaches display order.
+        # async_pump: run the upload and the per-picture step of each v2
+        # picture on one worker thread ("bw-pump"), in submission order,
+        # while this (the feed) thread parses the next picture: the upload
+        # from pageable memory waits for the card, and the enqueue of the
+        # step's ops is host work the parse can overlap (the native parser
+        # and packer release the GIL). The frames are LazyTorchFrames that
+        # drain the pump on first access. None (the default) is the JAX
+        # package's default for its device backend: on for a "cuda" torch
+        # decoder without frame groups or a recon_strategy, else off. A
+        # failed step raises at the next submit or sync point and on its
+        # frame's access, and every later one too: it is never dropped.
         if frontend not in ("native", "python"):
             raise ValueError(f"unknown frontend {frontend!r}")
         if recon not in ("torch", "numpy"):
@@ -178,6 +195,14 @@ class Decoder:
             raise ValueError("a recon_strategy takes no frame groups "
                              "(group_frames must be 0)")
         device = torch.device(device)
+        if async_pump is None:
+            async_pump = (device.type == "cuda" and recon == "torch" and
+                          group_frames <= 1 and recon_strategy is None)
+        elif async_pump and (recon != "torch" or group_frames > 1 or
+                             recon_strategy is not None):
+            raise ValueError("the pump runs the torch path's per-picture "
+                             "step: async_pump=True takes recon='torch', "
+                             "no frame groups and no recon_strategy")
         if recon == "torch":
             if device.type not in ("cuda", "cpu"):
                 raise ValueError(f"unsupported device {device}")
@@ -205,6 +230,14 @@ class Decoder:
         self._group_pend: List[_Pending] = []
         self._group_lock = threading.Lock()
         self.group_graphs = GroupGraphs()
+        self.async_pump = bool(async_pump)
+        self._pump = None                  # the worker, made at first use
+        self._pump_pend: List[futures.Future] = []
+        self._pump_lock = threading.Lock()
+        self._pump_failed: Optional[BaseException] = None
+        # K2/K3's progress counters, this decoder's own: decoders on other
+        # threads never share them, whatever the stream
+        self._progress = None
         self.sps_store: Dict[int, Sps] = {}
         self.pps_store: Dict[int, Pps] = {}
         self.active_sps_id: Optional[int] = None
@@ -602,23 +635,97 @@ class Decoder:
         return nf
 
     def close(self) -> None:
-        """Run the pending frame group, then release the slice pool's
-        worker threads. The decoder is unusable for further decode calls
-        after this."""
+        """Drain the pump and run the pending frame group, then release
+        the pump's and the slice pool's worker threads (also when the
+        drain raises a failed step's error). The decoder is unusable for
+        further decode calls after this."""
         try:
             self._flush_group()
         finally:
+            if self._pump is not None:
+                self._pump.shutdown(wait=True)
+                self._pump = None
             if self._executor is not None:
                 self._executor.shutdown(wait=True)
                 self._executor = None
 
+    def _pump_picture(self, buf: np.ndarray, bk: tuple,
+                      lay: PK.PackedLayoutV2, ci: bool, co: int
+                      ) -> LazyTorchFrame:
+        """Queue the upload and the per-picture step of a v2 picture on the
+        pump. The stacks, the slot and the workspace are taken now, on the
+        feed thread; the job runs on the worker under this decoder's card
+        and on the stream that is current here now (both are per thread:
+        without them a cuda:1 decoder's job would launch on card 0)."""
+        sy, sc, ws = self._stack_y, self._stack_c, self._progress
+        slot = self.dpb.current.slot
+        dev = sy.device
+        stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
+            else None
+
+        frame = LazyTorchFrame(self._pump_flush)
+
+        def step() -> None:
+            # the frame is set on the card and stream too: a start_fetch
+            # it runs then records its event on that stream
+            with contextlib.ExitStack() as on_card:
+                if stream is not None:
+                    on_card.enter_context(torch.cuda.device(dev))
+                    on_card.enter_context(torch.cuda.stream(stream))
+                frame._set(decode_picture_packed2(
+                    torch.from_numpy(buf).to(dev), sy, sc, slot, lay, bk,
+                    ci, co, workspace=ws))
+
+        with self._pump_lock:
+            self._pump_reap(wait=False)
+            if self._pump is None:
+                self._pump = ThreadPoolExecutor(
+                    1, thread_name_prefix="bw-pump")
+            self._pump_pend.append(
+                self._pump.submit(self._pump_run, step, frame))
+        return frame
+
+    def _pump_run(self, step, frame: LazyTorchFrame) -> None:
+        """One job on the pump worker. The first failure is kept: the jobs
+        queued behind it do not run (their references would be stale), and
+        every frame of theirs raises it."""
+        try:
+            if self._pump_failed is not None:
+                raise RuntimeError("not decoded: an earlier picture's step "
+                                   "failed") from self._pump_failed
+            step()
+        except BaseException as e:
+            if self._pump_failed is None:
+                self._pump_failed = e
+            frame._fail(e)
+            raise
+
+    def _pump_reap(self, wait: bool) -> None:
+        """Forget the finished jobs (all of them after waiting for them
+        when `wait`); raise the first failed job's error. Under
+        _pump_lock."""
+        pend = self._pump_pend
+        if wait:
+            futures.wait(pend)
+        self._pump_pend = [f for f in pend if not f.done()]
+        if self._pump_failed is not None:
+            raise self._pump_failed
+
+    def _pump_flush(self) -> None:
+        """Drain the dispatch pump: after this no worker job touches the
+        device stacks, so the feed thread may read or rebuild them."""
+        with self._pump_lock:
+            self._pump_reap(wait=True)
+
     def _flush_group(self) -> None:
-        """Run the pending frame group and give its lazy frames their
-        planes (nothing to do when none is pending). This is the one sync
-        point before any host access to the device stacks: every path
-        that reads or rebuilds them, or writes a picture into them that
-        is not in the group, calls it first. One pending picture takes the
-        per-picture step; 2..G the group step (a graph of that size)."""
+        """Drain the pump, then run the pending frame group and give its
+        lazy frames their planes (nothing to do when none is pending). This
+        is the one sync point before any host access to the device stacks:
+        every path that reads or rebuilds them, or writes a picture into
+        them that is not the pump's or the group's, calls it first. One
+        pending picture takes the per-picture step; 2..G the group step (a
+        graph of that size)."""
+        self._pump_flush()
         with self._group_lock:
             pend, self._group_pend = self._group_pend, []
             if not pend:
@@ -628,7 +735,8 @@ class Decoder:
                 p = pend[0]
                 p.frame._set(decode_picture_packed2(
                     torch.from_numpy(p.buf).to(self.device), self._stack_y,
-                    self._stack_c, p.slot, lay, p.bk, ci, co))
+                    self._stack_c, p.slot, lay, p.bk, ci, co,
+                    workspace=self._progress))
                 return
             BK = tuple(max(p.bk[j] for p in pend) for j in range(3))
             bufs = np.stack([PK.expand_buf_v2(p.buf, lay, p.bk, BK)
@@ -697,6 +805,8 @@ class Decoder:
                                     device=self.device)
         self._stack_c = torch.zeros((R, 2, H // 2, W // 2),
                                     dtype=torch.uint8, device=self.device)
+        self._progress = torch.zeros(sps.height_mbs, dtype=torch.int32,
+                                     device=self.device)
         self._dstack_key = key
         for p in self.dpb.buffer:
             if p.frame is not None and not p.non_existing \
@@ -710,6 +820,7 @@ class Decoder:
         being decoded. A strategy that returns a frame writes its planes
         into that slot (``core.recon.update_stack_slot``): the decoder
         writes the slot only for the pictures it reconstructs itself."""
+        self._flush_group()
         self._ensure_stacks()
         return self._stack_y, self._stack_c, self.dpb.current.slot
 
@@ -733,10 +844,14 @@ class Decoder:
                 buf, bk = res
                 if self.group_frames > 1:
                     return self._queue_group(buf, bk, lay, ci, co)
+                if self.async_pump:
+                    return self._pump_picture(buf, bk, lay, ci, co)
                 return decode_picture_packed2(
                     torch.from_numpy(buf).to(self.device), *stacks, lay, bk,
-                    constrained_intra=ci, chroma_qp_offset=co)
-        # a v1 or unpacked picture writes the stacks after the pending group
+                    constrained_intra=ci, chroma_qp_offset=co,
+                    workspace=self._progress)
+        # a v1 or unpacked picture writes the stacks after the pump's jobs
+        # and the pending group, on this thread
         self._flush_group()
         if self.pack != "none":
             lay = PK.get_packed_layout(w, h)
@@ -746,10 +861,12 @@ class Decoder:
             buf, kb = PK.pack_picture(pic, lay, self._pack_scratch)
             return decode_picture_packed(
                 torch.from_numpy(buf).to(self.device), *stacks, lay, kb,
-                constrained_intra=ci, chroma_qp_offset=co)
+                constrained_intra=ci, chroma_qp_offset=co,
+                workspace=self._progress)
         arrs = tables_from_numpy(host_picture_arrays(pic, co, ci),
                                  self.device)
-        return decode_arrays_into_slot(arrs, *stacks, w, h, co)
+        return decode_arrays_into_slot(arrs, *stacks, w, h, co,
+                                       workspace=self._progress)
 
     def _queue_group(self, buf: np.ndarray, bk: tuple,
                      lay: PK.PackedLayoutV2, ci: bool, co: int

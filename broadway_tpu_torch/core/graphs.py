@@ -147,7 +147,7 @@ class GroupGraph:
         self._upload(bufs, slots)
         self.graph.replay()
         for wrapper, n in self.launches.items():
-            wrapper.launches += n
+            _build.add_launches(wrapper, n)
         for which, n in self.device_launches.items():
             KW.add_launches(which, n)
         self.replays += 1

@@ -125,20 +125,23 @@ class TorchFrame:
 
 
 class LazyTorchFrame:
-    """A frame of a pending frame group (``Decoder(group_frames=G)``; the
-    counterpart of ``LazyTpuFrame``): it gets its ``TorchFrame`` when the
-    group runs, and the first access to anything of it forces the group
-    (``force``, the decoder's flush). A ``start_fetch`` before then is
-    remembered and begins once the frame is set; it does not force the
-    group (that would cut every group to one picture under prefetch).
-    ``_set`` and ``start_fetch`` may run on two threads, so they share a
-    lock."""
+    """A frame of a pending frame group (``Decoder(group_frames=G)``) or of
+    a picture queued on the dispatch pump (``Decoder(async_pump=True)``;
+    the counterpart of ``LazyTpuFrame``): it gets its ``TorchFrame`` when
+    the group or the pump's job runs, and the first access to anything of
+    it forces that (``force``, the decoder's flush or pump drain). A
+    ``start_fetch`` before then is remembered and begins once the frame is
+    set; it does not force the group (that would cut every group to one
+    picture under prefetch). ``_set`` (or ``_fail``, when the job raised)
+    and ``start_fetch`` may run on two threads, so they share a lock. A
+    frame whose job failed raises that error on every access."""
 
-    __slots__ = ("_force", "_frame", "_want_fetch", "_lock")
+    __slots__ = ("_force", "_frame", "_error", "_want_fetch", "_lock")
 
     def __init__(self, force) -> None:
         self._force = force
         self._frame = None
+        self._error = None
         self._want_fetch = False
         self._lock = threading.Lock()
 
@@ -152,10 +155,19 @@ class LazyTorchFrame:
         if want:
             frame.start_fetch()
 
+    def _fail(self, error: BaseException) -> None:
+        """The job that was to set this frame raised `error`."""
+        with self._lock:
+            self._error = error
+            self._force = None
+
     def _ensure(self) -> TorchFrame:
         force = self._force       # None once set: read before the frame
-        if self._frame is None:
+        if self._frame is None and self._error is None:
             force()
+        if self._error is not None:
+            raise RuntimeError("this picture was not decoded: its step "
+                               "failed") from self._error
         return self._frame
 
     def start_fetch(self) -> None:
@@ -402,11 +414,15 @@ def update_stack_slot(ref_y: torch.Tensor, ref_c: torch.Tensor, slot: int,
 def decode_arrays_into_slot(arrs: Dict[str, torch.Tensor],
                             ref_y: torch.Tensor, ref_c: torch.Tensor,
                             slot: int, w_mbs: int, h_mbs: int,
-                            chroma_qp_offset: int) -> TorchFrame:
+                            chroma_qp_offset: int,
+                            workspace: torch.Tensor = None) -> TorchFrame:
     """The per-picture step on the per-MB dict itself (an unpacked
     buffer, or ``host_picture_arrays`` moved to the stacks' device): the
-    picture's frame out, and its planes written into stack slot `slot`."""
-    Y, C = decode_picture(arrs, ref_y, ref_c, w_mbs, h_mbs, chroma_qp_offset)
+    picture's frame out, and its planes written into stack slot `slot`.
+    workspace: K2/K3's progress counters when the caller owns them (a
+    ``Decoder`` passes its own)."""
+    Y, C = decode_picture(arrs, ref_y, ref_c, w_mbs, h_mbs, chroma_qp_offset,
+                          workspace=workspace)
     frame = TorchFrame(torch.cat([Y.reshape(-1), C.reshape(-1)]),
                        16 * w_mbs, 16 * h_mbs)
     update_stack_slot(ref_y, ref_c, slot, frame)
@@ -416,13 +432,13 @@ def decode_arrays_into_slot(arrs: Dict[str, torch.Tensor],
 def decode_picture_packed2(buf: torch.Tensor, ref_y: torch.Tensor,
                            ref_c: torch.Tensor, slot: int,
                            lay: PackedLayoutV2, bk: tuple,
-                           constrained_intra: bool, chroma_qp_offset: int
-                           ) -> TorchFrame:
+                           constrained_intra: bool, chroma_qp_offset: int,
+                           workspace: torch.Tensor = None) -> TorchFrame:
     """The per-picture step: one uploaded v2 buffer in, the picture's
     frame out, and its planes written into stack slot `slot`."""
     arrs = unpack_arrs_v2(buf, lay, bk, constrained_intra, chroma_qp_offset)
     return decode_arrays_into_slot(arrs, ref_y, ref_c, slot, lay.w, lay.h,
-                                   chroma_qp_offset)
+                                   chroma_qp_offset, workspace)
 
 
 def decode_pictures_packed_group(bufs: torch.Tensor, ref_y: torch.Tensor,
@@ -477,12 +493,13 @@ def decode_pictures_packed_group(bufs: torch.Tensor, ref_y: torch.Tensor,
 def decode_picture_packed(buf: torch.Tensor, ref_y: torch.Tensor,
                           ref_c: torch.Tensor, slot: int, lay: PackedLayout,
                           kb: int, constrained_intra: bool,
-                          chroma_qp_offset: int) -> TorchFrame:
+                          chroma_qp_offset: int,
+                          workspace: torch.Tensor = None) -> TorchFrame:
     """The per-picture step on a v1 buffer (the picture v2 declined, or
     ``Decoder(pack="v1")``): as ``decode_picture_packed2``."""
     arrs = unpack_arrs(buf, lay, kb, constrained_intra, chroma_qp_offset)
     return decode_arrays_into_slot(arrs, ref_y, ref_c, slot, lay.w, lay.h,
-                                   chroma_qp_offset)
+                                   chroma_qp_offset, workspace)
 
 
 def decode_pictures_packed_batch(bufs: torch.Tensor, ref_y: torch.Tensor,

@@ -11,11 +11,12 @@
 #include "wavefront.cuh"
 
 namespace bwwf {
-int max_ctas = 0;
-long long launches[N_WHICH] = {0, 0, 0};
-thread_local long long captured[N_WHICH] = {0, 0, 0};
-int last_grid[N_WHICH] = {0, 0, 0};
-int last_resident[N_WHICH] = {0, 0, 0};
+std::atomic<int> max_ctas{0};
+std::atomic<long long> launches[N_WHICH]{};
+thread_local std::atomic<long long> captured[N_WHICH]{};
+std::atomic<int> last_grid[N_WHICH]{};
+std::atomic<int> last_resident[N_WHICH]{};
+std::mutex launch_mutex;
 }  // namespace bwwf
 
 namespace {
@@ -51,23 +52,20 @@ extern "C" int bw_handoff_probe(int* progress, int w_mbs, int h_mbs,
 // every wavefront launch at n CTAs (0 lifts the cap), so that a test can
 // drive the rows-beyond-resident-CTAs stride on a small picture, which a
 // card with more SMs than rows never reaches otherwise. The cap is one
-// plain int for the whole process, read without a lock by every launch:
-// it is not safe beside the decoder's slice-pool threads or a second
-// decoder launching from another thread, so set it only while nothing
-// else decodes. No decoding path calls this. Returns the previous cap.
+// value for the whole process, read by every launch: a decoder launching
+// from another thread meanwhile is capped too, so set it only while
+// nothing else decodes. No decoding path calls this. Returns the previous
+// cap.
 extern "C" int bw_wavefront_set_max_ctas(int n) {
-  const int old = bwwf::max_ctas;
-  bwwf::max_ctas = n < 0 ? 0 : n;
-  return old;
+  return bwwf::max_ctas.exchange(n < 0 ? 0 : n);
 }
 
 // Kernel launches made so far by wavefront `which` (0 intra, 1 deblock,
 // 2 probe); reset != 0 zeroes the count after reading it.
 extern "C" int bw_wavefront_device_launches(int which, int reset) {
   if (which < 0 || which >= bwwf::N_WHICH) return -1;
-  const int n = (int)bwwf::launches[which];
-  if (reset) bwwf::launches[which] = 0;
-  return n;
+  return (int)(reset ? bwwf::launches[which].exchange(0)
+                     : bwwf::launches[which].load());
 }
 
 // Launches of wavefront `which` that stream captures on the calling thread
@@ -75,9 +73,7 @@ extern "C" int bw_wavefront_device_launches(int which, int reset) {
 // the graph just captured launches.
 extern "C" int bw_wavefront_take_captured(int which) {
   if (which < 0 || which >= bwwf::N_WHICH) return -1;
-  const int n = (int)bwwf::captured[which];
-  bwwf::captured[which] = 0;
-  return n;
+  return (int)bwwf::captured[which].exchange(0);
 }
 
 // Add n launches to wavefront `which`'s count: the launches of a graph
@@ -91,12 +87,12 @@ extern "C" int bw_wavefront_add_launches(int which, int n) {
 // CTAs in the newest launch of wavefront `which`.
 extern "C" int bw_wavefront_last_grid(int which) {
   if (which < 0 || which >= bwwf::N_WHICH) return -1;
-  return bwwf::last_grid[which];
+  return bwwf::last_grid[which].load();
 }
 
 // CTAs of wavefront `which` that the card could hold resident at once, as
 // the occupancy calculator said at its newest launch.
 extern "C" int bw_wavefront_last_resident(int which) {
   if (which < 0 || which >= bwwf::N_WHICH) return -1;
-  return bwwf::last_resident[which];
+  return bwwf::last_resident[which].load();
 }

@@ -42,7 +42,14 @@
 // finished its earlier rows (all below r) and row r - 1 finishes, so row r
 // does; a batch changes nothing in that argument, it only removes waits.
 // The counters are zeroed by a cudaMemsetAsync on the same stream before
-// each launch.
+// each launch. The memset and the launch are one unit in stream order: a
+// process-wide mutex is held across both calls. Without it two host
+// threads launching on one stream with one workspace (the wrappers' own
+// per-stream counters, shared by every thread on the legacy default
+// stream) could queue memset A, memset B, launch A, launch B: B would then
+// find A's finished counters, and its rows would not wait for the row
+// above. The calls under the mutex only enqueue, so one mutex for every
+// (device, stream) costs microseconds and needs no table of locks.
 //
 // CUDA graphs (core/graphs.py): stream capture records the memset and the
 // cudaLaunchCooperativeKernel call as they stand (CUDA 12.8 runtime, H100),
@@ -58,21 +65,24 @@
 
 #pragma once
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 namespace bwwf {
 
 enum Which { INTRA = 0, DEBLOCK = 1, PROBE = 2, N_WHICH = 3 };
 
-// defined in wavefront.cu
-extern int max_ctas;                 // 0: no cap (tests cap the grid)
-extern long long launches[N_WHICH];  // kernel launches that ran
+// defined in wavefront.cu; atomic, since any host thread may launch
+extern std::atomic<int> max_ctas;               // 0: no cap (tests cap it)
+extern std::atomic<long long> launches[N_WHICH];  // kernel launches that ran
 // launches recorded by a stream capture on this thread, not yet taken
-extern thread_local long long captured[N_WHICH];
-extern int last_grid[N_WHICH];       // CTAs of the newest launch
-extern int last_resident[N_WHICH];   // CTAs that could be resident for it
+extern thread_local std::atomic<long long> captured[N_WHICH];
+extern std::atomic<int> last_grid[N_WHICH];      // CTAs of the newest launch
+extern std::atomic<int> last_resident[N_WHICH];  // CTAs resident for it
+extern std::mutex launch_mutex;  // held across a memset and its launch
 
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
@@ -153,15 +163,19 @@ inline cudaError_t launch_rows(Which which, const void* kernel, int threads,
   if (cap < 1) return cudaErrorLaunchOutOfResources;
   if (rows < 1) return cudaErrorInvalidValue;
   int grid = rows < cap ? rows : cap;
-  if (max_ctas > 0 && grid > max_ctas) grid = max_ctas;
+  const int cap_tests = max_ctas.load();
+  if (cap_tests > 0 && grid > cap_tests) grid = cap_tests;
   cudaStreamCaptureStatus capture = cudaStreamCaptureStatusNone;
   e = cudaStreamIsCapturing(stream, &capture);
   if (e != cudaSuccess) return e;
-  e = cudaMemsetAsync(progress, 0, sizeof(int) * (size_t)rows, stream);
-  if (e != cudaSuccess) return e;
-  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args,
-                                  smem, stream);
-  if (e != cudaSuccess) return e;
+  {
+    std::lock_guard<std::mutex> unit(launch_mutex);
+    e = cudaMemsetAsync(progress, 0, sizeof(int) * (size_t)rows, stream);
+    if (e != cudaSuccess) return e;
+    e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(threads), args,
+                                    smem, stream);
+    if (e != cudaSuccess) return e;
+  }
   if (capture == cudaStreamCaptureStatusActive)
     captured[which] += 1;
   else

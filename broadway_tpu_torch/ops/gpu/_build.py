@@ -78,6 +78,9 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 _capture = threading.local()     # .tally while this thread captures a graph
+# the wrappers' launch counts: a thread switch may not split an increment
+# (a pumped decoder, or decoders on several threads, launch at once)
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -226,9 +229,16 @@ def count_launch(wrapper) -> None:
     ``wrapper.launches`` at every replay."""
     tally = getattr(_capture, "tally", None)
     if tally is None:
-        wrapper.launches += 1
+        add_launches(wrapper, 1)
     else:
         tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
+def add_launches(wrapper, n: int) -> None:
+    """n launches of `wrapper`'s kernel that ran (one launch, or a graph
+    replay's), added to ``wrapper.launches`` under a lock."""
+    with _count_lock:
+        wrapper.launches += n
 
 
 @contextlib.contextmanager

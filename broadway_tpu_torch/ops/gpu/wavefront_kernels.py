@@ -13,7 +13,10 @@ axis) is one launch too: its rows are every picture's rows, and each
 picture's first row starts at once. The counters are a small int32
 workspace that this module owns per device and stream; a caller whose
 launches may run beside others on the same stream (a captured CUDA graph,
-``core/graphs.py``) passes its own (``workspace=``).
+``core/graphs.py``; a ``Decoder``) passes its own (``workspace=``). The
+zeroing of the counters and the launch are one unit in stream order
+(``csrc/wavefront.cuh``), so threads that share a stream and its
+counters cannot interleave them.
 
 Each wrapper takes the plain version (ops/gpu/intra.py, deblock.py) for
 CPU tensors and launches the kernel for CUDA tensors; ``launches``
@@ -24,6 +27,8 @@ back to per-diagonal launches or to the plain version.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -36,6 +41,7 @@ from .tables import tables
 INTRA, DEBLOCK, PROBE = 0, 1, 2      # bwwf::Which of csrc/wavefront.cuh
 
 _progress = {}      # (device index, stream) -> int32 [rows] counters
+_progress_lock = threading.Lock()
 
 
 def _check_planes(Y, C, w_mbs, h_mbs) -> int:
@@ -70,10 +76,11 @@ def _workspace(dev: torch.device, stream: int, rows: int,
                              f"counters on {dev}")
         return own
     key = (dev.index, stream)
-    ws = _progress.get(key)
-    if ws is None or ws.numel() < rows:
-        ws = torch.zeros(max(rows, 256), dtype=torch.int32, device=dev)
-        _progress[key] = ws
+    with _progress_lock:
+        ws = _progress.get(key)
+        if ws is None or ws.numel() < rows:
+            ws = torch.zeros(max(rows, 256), dtype=torch.int32, device=dev)
+            _progress[key] = ws
     return ws
 
 

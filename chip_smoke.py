@@ -83,6 +83,26 @@ failure is caught):
      rows without the ghost row beside it; frames/s of each band path
      beside the single-card decoder (median of 3 passes). One card shows
      the band machinery, not cross-card copies or scaling.
+ 12. a third-party encoder and the last tools, at full width: (a) the
+     committed x264 1920x1080 stream (broadway_tpu_torch/tools/data/, 8
+     pictures, 4 slices, 3 references, cropped from 1088) through
+     Decoder(device="cuda", parallel_slices=8) with async_pump=False and
+     True, every picture's md5 equal to the committed JSON's (made once
+     with the JAX package's CPU decoder), K1, K2 and K3 once a picture
+     (device counts for K2 / K3), frames/s of both settings (median of 3
+     warm passes, in turns), and the same two settings on phase 3's
+     stream; (b) K1 on the x264 stream's first P picture against its
+     plain version, timed as phase 4 times it, its bound from this run's
+     inputs, the share of predicting MBs with more than one vector and
+     with more than one fraction (beside phase 3's P picture); (c)
+     tools.demo.tree on the port's MP4 mux of the x264 stream on the card,
+     md5s equal to the JSON's; (d) tools.demo.story on a CIF stream (22x18
+     MBs, 6 pictures, deblock, 3 references; generated in a side process)
+     three times: six players at once, four pumped decoders on the card on
+     four threads and two on the CPU, every player's YUV byte-equal to the
+     NumPy path and K1 / K2 / K3 exactly 4 a picture; (e)
+     tools.conformance_sweep.run_sweep("cuda", 12, 20260821), all 12
+     byte-equal to the NumPy path.
 The last lines of stdout: the scaling table (JSON), the kernels' JSON
 record, the nvidia-smi name/power-limit line, and {"ok": true,
 "device": ...}.
@@ -118,6 +138,16 @@ BAND_STREAMS = (
                                 n_frames=4, deblock_idc=2)),
 )
 BIG = (256, 136)             # 4096x2176: more rows than SMs, every MB busy
+# phase 12: the committed x264 fixture, the story's CIF stream, the sweep
+X264_STREAM = os.path.join(REPO, "broadway_tpu_torch", "tools", "data",
+                           "x264_natural_1080p")
+STORY_STREAM = ("inter_stream", dict(width_mbs=22, height_mbs=18, n_frames=6,
+                                     seed=352288, deblock=True,
+                                     num_ref_frames=3, multi_ref_idx=True,
+                                     mvd_range=60))
+STORY_RUNS = 3
+PUMP_PASSES = 3
+SWEEP = (12, 20260821)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 INT_OPS_PER_S = 33.5e12      # int32 outside the tensor cores: half of 67 T
 
@@ -1589,6 +1619,254 @@ def band_phase(streams_abc: dict, want_c, pool, device, smi: str,
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
     return out
 
+def mv_shares(mv, rb) -> dict:
+    """Of the MBs that predict (any block with a reference): the share
+    whose 16 blocks hold more than one (vector, reference), and more than
+    one quarter-pel fraction."""
+    n = rb.shape[0]
+    mv, rb = mv.reshape(n, 16, 2), rb.reshape(n, 16)
+    pred = (rb >= 0).any(dim=1)
+    many_vec = ((mv != mv[:, :1]).any(dim=2) | (rb != rb[:, :1])).any(dim=1)
+    frac = mv & 3
+    many_frac = (frac != frac[:, :1]).any(dim=2).any(dim=1)
+    n_pred = int(pred.sum())
+    return {"predicting_mbs": n_pred, "mbs": n,
+            "share_many_vectors": int((many_vec & pred).sum()) / n_pred,
+            "share_many_fractions": int((many_frac & pred).sum()) / n_pred}
+
+
+def first_p_picture(data: bytes, device):
+    """The per-MB arrays of a stream's second picture (its first P
+    picture, for the streams here), its layout and its stack slots."""
+    import torch
+
+    from broadway_tpu_torch.core.packed import pack_stream, unpack_arrs_v2
+    buf, bk, lay, ci, co, R = pack_stream(data, max_pics=2)[1]
+    return (unpack_arrs_v2(torch.from_numpy(buf).to(device), lay, bk, ci,
+                           co), lay, R)
+
+
+def x264_k1_phase(data: bytes, device, seed: int = 264) -> dict:
+    """K1 on the x264 stream's first P picture (a real encoder's vectors:
+    P_8x8 sub-partitions, three references): against its plain version,
+    timed with CUDA events behind a held stream (as phase 4), its bound
+    from this run's inputs, the empty launch of its grid, and the shares
+    of MBs with more than one vector / fraction."""
+    import numpy as np
+    import torch
+
+    from broadway_tpu_torch.ops.gpu import inter
+    from broadway_tpu_torch.ops.gpu import mc_kernel as K1
+    from broadway_tpu_torch.ops.gpu import probe
+
+    arrs, lay, R = first_p_picture(data, device)
+    w, h = lay.w, lay.h
+    rng = np.random.RandomState(seed)
+    ref_y = torch.from_numpy(rng.randint(0, 256, (R, 16 * h, 16 * w),
+                                         dtype=np.uint8)).to(device)
+    ref_c = torch.from_numpy(rng.randint(0, 256, (R, 2, 8 * h, 8 * w),
+                                         dtype=np.uint8)).to(device)
+    mv, rb = arrs["mv"], arrs["ref_blk"]
+    args = (ref_y, ref_c, mv, rb, w, h)
+    got = K1.mc_predict(*args)
+    want = inter.mc_predict_plain(*args)
+    err = max(int((g.to(torch.int32) - x.to(torch.int32)).abs().max())
+              for g, x in zip(got, want))
+    if err > TOL:
+        raise AssertionError(f"K1_mc differs from its plain version on the "
+                             f"x264 P picture: max |err| {err}")
+    bnd = k1_bound(ref_y, ref_c, mv, rb, got, w, h)
+    ms = cuda_ms(lambda: K1.mc_predict(*args), K1_REPS, HOLD_MS)
+    plain_ms = cuda_ms(lambda: inter.mc_predict_plain(*args), 1)
+    ctas, threads = K1.launch_shape(mv.shape[0])
+    floor = cuda_ms(lambda: probe.launch_probe(ctas, threads, device),
+                    K1_REPS, HOLD_MS)
+    out = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+           "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+           "bound_bytes": bnd["bound_bytes"], "bound_launch_ms": floor,
+           "ms_over_bound": ms / bnd["bound_ms"],
+           "ms_over_bound_held_to": ms / max(bnd["bound_ms"], floor),
+           **mv_shares(mv, rb)}
+    log(f"  (b) K1_mc on the x264 P picture ({w}x{h} MBs, {R} slots): "
+        f"kernel {ms:.5f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}), empty launch of its "
+        f"grid {floor:.5f} ms; {out['ms_over_bound']:.2f}x its bound; "
+        f"{out['predicting_mbs']} of {out['mbs']} MBs predict, "
+        f"{100 * out['share_many_vectors']:.1f}% of them with more than one "
+        f"vector, {100 * out['share_many_fractions']:.1f}% with more than "
+        "one fraction; byte-equal to plain")
+    return out
+
+
+def _md5s(frames) -> list:
+    import hashlib
+    return [hashlib.md5(f if isinstance(f, bytes) else f.tobytes())
+            .hexdigest() for f in frames]
+
+
+def pump_pair(data: bytes, device, label: str, want_md5s,
+              passes: int) -> dict:
+    """The stream through Decoder(device, parallel_slices=8) with the pump
+    off and on: each run's picture md5s equal to `want_md5s`, K1 / K2 / K3
+    once a picture (K2 / K3 also on the device), then frames/s of both,
+    median of `passes` warm passes taken in turns."""
+    from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
+
+    out = {}
+    for pump in (False, True):
+        reset_launch_counts()
+        frames, _ = decode_port(data, device, async_pump=pump)
+        counts = launch_counts()
+        counts_dev = {"K2_intra": KW.device_launches(KW.INTRA),
+                      "K3_deblock": KW.device_launches(KW.DEBLOCK)}
+        got = _md5s(frames)
+        if got != list(want_md5s):
+            raise AssertionError(f"{label}, async_pump={pump}: "
+                                 f"{_first_difference(got, want_md5s)}")
+        n = len(got)
+        _require_one_launch_per_picture(f"{label} pump={pump}", counts, n)
+        _require_one_launch_per_picture(f"{label} pump={pump} (device)",
+                                        counts_dev, n)
+        out["on" if pump else "off"] = {"launches": counts,
+                                        "device_launches": counts_dev}
+    secs = {False: [], True: []}
+    for k in range(passes):
+        for pump in (False, True) if k % 2 == 0 else (True, False):
+            secs[pump].append(decode_port(data, device, async_pump=pump)[1])
+        log(f"  {label} warm pass {k}: pump off {n / secs[False][-1]:.2f}, "
+            f"on {n / secs[True][-1]:.2f} frames/s")
+    for pump in (False, True):
+        rec = out["on" if pump else "off"]
+        rec["fps"] = n / _median(secs[pump])
+        rec["fps_passes"] = [n / x for x in secs[pump]]
+    out["pictures"] = n
+    log(f"  {label}: {n} pictures equal with the pump off and on, K1 / K2 / "
+        f"K3 once a picture; median of {passes}: off {out['off']['fps']:.2f}"
+        f", on {out['on']['fps']:.2f} frames/s")
+    return out
+
+
+def tools_phase(data: bytes, want_frames, k1_p_ms: float, x264: dict,
+                numpy_s: float, story_job, device, smi: str,
+                passes: int = PUMP_PASSES) -> dict:
+    """Phase 12: the committed x264 1080p stream with the pump off and on
+    (and phase 3's stream, `data`, whose NumPy frames are `want_frames`),
+    K1 on the x264 P picture (beside phase 3's P picture: its shares, and
+    K1's phase-4 time on it, `k1_p_ms`), demo.tree on its MP4 mux,
+    demo.story on the CIF stream three times, and the conformance
+    sweep."""
+    from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
+    from broadway_tpu_torch.tools import conformance_sweep, demo, mp4mux
+
+    t0 = time.perf_counter()
+    xdata, info = x264["data"], x264["info"]
+    out = {"card": smi, "numpy_path_s": numpy_s}
+    out["x264"] = {"stream": os.path.relpath(X264_STREAM, REPO) + ".h264",
+                   "made_with": info["made_with"], "settings": info["x264"],
+                   "pump": pump_pair(xdata, device, "(a) x264 1080p",
+                                     info["frames"], passes)}
+    out["realistic_pump"] = pump_pair(data, device, "(a) phase 3's stream",
+                                      _md5s(want_frames), passes)
+    log(f"  (a) host probe beside them: the NumPy path took {numpy_s:.1f} s "
+        f"for phase 3's frames ({smi})")
+
+    out["x264"]["k1"] = x264_k1_phase(xdata, device)
+    arrs = first_p_picture(data, device)[0]
+    real = out["x264"]["k1"]["realistic_p"] = dict(
+        mv_shares(arrs["mv"], arrs["ref_blk"]), ms=k1_p_ms)
+    log(f"      beside it phase 3's P picture: K1 {k1_p_ms:.5f} ms (phase "
+        f"4); {real['predicting_mbs']} of {real['mbs']} MBs predict, "
+        f"{100 * real['share_many_vectors']:.1f}% with more than one "
+        f"vector, {100 * real['share_many_fractions']:.1f}% with more than "
+        "one fraction")
+
+    reset_launch_counts()
+    r = demo.tree(mp4mux.mux(xdata, info["width"], info["height"]), device)
+    counts = launch_counts()
+    if _md5s(r["yuv"]) != info["frames"]:
+        raise AssertionError("(c) demo.tree: " + _first_difference(
+            _md5s(r["yuv"]), info["frames"]))
+    _require_one_launch_per_picture("demo.tree", counts, len(r["yuv"]))
+    out["tree"] = {"frames": r["frames"], "seconds": r["seconds"],
+                   "fps": r["fps"], "launches": counts}
+    log(f"  (c) demo.tree on the port's MP4 mux of the x264 stream: "
+        f"{r['frames']} frames in {r['seconds']:.3f} s, md5s equal to the "
+        f"JSON's; wrapper launches {counts}")
+
+    story_data, story_want = story_job.get(timeout=900)
+    runs = []
+    for k in range(STORY_RUNS):
+        reset_launch_counts()
+        ts = time.perf_counter()
+        res = demo.story(story_data, device)
+        sec = time.perf_counter() - ts
+        counts = launch_counts()
+        counts_dev = {"K2_intra": KW.device_launches(KW.INTRA),
+                      "K3_deblock": KW.device_launches(KW.DEBLOCK)}
+        for p in res:
+            if p["yuv"] != story_want:
+                raise AssertionError(
+                    f"(d) story run {k}, {p['label']} ({p['device']}, "
+                    f"{p['render']}): "
+                    f"{_first_difference(p['yuv'], story_want)} from the "
+                    "NumPy path")
+        n_card = sum(p["device"] != "cpu" for p in res)
+        _require_one_launch_per_picture(f"story ({n_card} card players)",
+                                        counts, n_card * len(story_want))
+        _require_one_launch_per_picture("story (device)", counts_dev,
+                                        n_card * len(story_want))
+        runs.append({"seconds": sec, "launches": counts,
+                     "device_launches": counts_dev,
+                     "players": [{key: p[key] for key in
+                                  ("label", "device", "render", "frames",
+                                   "seconds", "fps")} for p in res]})
+        log(f"  (d) demo.story run {k}: 6 players at once ({n_card} on "
+            f"{device}, pumped, on threads), {len(story_want)} pictures "
+            f"each, every player byte-equal to the NumPy path, {sec:.2f} s; "
+            "fps " + ", ".join(f"{p['device']}/{p['render']} {p['fps']:.1f}"
+                              for p in res)
+            + f"; launches {counts}, device {counts_dev}")
+    out["story"] = {"stream": dict(STORY_STREAM[1],
+                                   generator=STORY_STREAM[0]),
+                    "pictures": len(story_want), "runs": runs}
+
+    ts = time.perf_counter()
+    count, seed = SWEEP
+    res = conformance_sweep.run_sweep(device, count, seed)
+    bad = [name for name, ok in res if not ok]
+    if len(res) != count or bad:
+        raise AssertionError(f"(e) conformance sweep: {bad} differ from the "
+                             "NumPy path")
+    out["sweep"] = {"streams": [name for name, _ in res], "equal": len(res),
+                    "seconds": time.perf_counter() - ts}
+    log(f"  (e) conformance_sweep.run_sweep({device!r}, {count}, {seed}): "
+        f"{len(res)}/{count} byte-equal to the NumPy path "
+        f"({out['sweep']['seconds']:.1f} s)")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
+def story_stream_and_frames() -> tuple:
+    """Phase 12's CIF story stream and its NumPy path's frames (run in a
+    side process)."""
+    data = band_stream(*STORY_STREAM)
+    return data, numpy_frames(data)
+
+
+def load_x264() -> dict:
+    """The committed x264 stream and its JSON; the stream must hash to
+    what the JSON says."""
+    import hashlib
+    with open(X264_STREAM + ".h264", "rb") as f:
+        data = f.read()
+    with open(X264_STREAM + ".json") as f:
+        info = json.load(f)
+    if hashlib.md5(data).hexdigest() != info["stream_md5"]:
+        raise AssertionError("the x264 fixture does not hash to its JSON")
+    return {"data": data, "info": info}
+
+
 def check_no_jax() -> None:
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "broadway_tpu"))
@@ -1617,12 +1895,13 @@ def main() -> int:
     log(f"    card: {smi}; torch sees {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
 
-    # the three short streams of phase 9 and the two of phase 11 are
-    # generated (pure Python, some seconds each) in processes of their own
-    # beside the main stream, and are all there before anything is timed;
-    # phase 11 runs its NumPy decodes in the same pool
+    # the three short streams of phase 9, the two of phase 11 and phase
+    # 12's story stream (with its NumPy decode) are generated (pure Python,
+    # some seconds each) in processes of their own beside the main stream,
+    # and are all there before anything is timed; phase 11 runs its NumPy
+    # decodes in the same pool
     pool = multiprocessing.get_context("spawn").Pool(
-        len(LOCKSTEP_STREAMS) - 1 + len(BAND_STREAMS))
+        len(LOCKSTEP_STREAMS) - 1 + len(BAND_STREAMS) + 1)
     try:
         return run_phases(torch, smi, pool)
     finally:
@@ -1640,6 +1919,8 @@ def run_phases(torch, smi: str, pool) -> int:
              for seed, n in LOCKSTEP_STREAMS[1:]]
     band_jobs = {lab: pool.apply_async(band_stream, (gen, kw))
                  for lab, gen, kw in BAND_STREAMS}
+    story_job = pool.apply_async(story_stream_and_frames)
+    x264 = load_x264()
     t0 = time.perf_counter()
     fe_error = []
 
@@ -1706,6 +1987,12 @@ def run_phases(torch, smi: str, pool) -> int:
 
     log(f"[11] band sharding: 1920x1088 over {N_BANDS} bands on the card")
     bands = band_phase(band_streams, want_frames, pool, "cuda", smi)
+
+    log("[12] x264 1080p with the pump off and on, K1 on x264, demo tree "
+        "and story, the conformance sweep")
+    tools = tools_phase(data, want_frames,
+                        kres["K1_mc"]["per_picture"]["P"]["ms"], x264,
+                        numpy_s, story_job, "cuda", smi)
     pool.close()
     pool.join()
     check_no_jax()
@@ -1773,12 +2060,27 @@ def run_phases(torch, smi: str, pool) -> int:
                          bands["kernels"]["K3_deblock_17_rows"]
                          if name == "K3_deblock" else None},
             "per_picture": r["per_picture"],
+            # phase 12: the x264 stream with the pump off / on, demo.tree
+            # on its MP4, each demo.story run (4 card players)
+            "launches_x264_paths": {
+                "pump_off": tools["x264"]["pump"]["off"]["launches"][name],
+                "pump_on": tools["x264"]["pump"]["on"]["launches"][name],
+                "tree": tools["tree"]["launches"][name],
+                "story": [run["launches"][name]
+                          for run in tools["story"]["runs"]]},
+            "x264_p": None if wave else tools["x264"]["k1"],
             "synthetic": None if wave else k1_synth,
             "big": big.get(name)})
     record = {"kernels": kernels, "handoff": probe,
               "big_handoff_floor_ms": big["handoff_floor_ms"],
               "step": step, "lockstep": lockstep, "groups": groups,
               "bands": {k: v for k, v in bands.items() if k != "kernels"},
+              "pump": {"x264": tools["x264"]["pump"],
+                       "realistic": tools["realistic_pump"]},
+              "x264": {k: v for k, v in tools["x264"].items()
+                       if k != "pump"},
+              "tree": tools["tree"], "story": tools["story"],
+              "sweep": tools["sweep"], "phase12_s": tools["seconds"],
               "e2e_fps": fps, "frames": n,
               "numpy_path_s": numpy_s,
               "yuv2rgb": {"rgba_int_ms": entry["rgba_int_ms"],

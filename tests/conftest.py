@@ -97,3 +97,5 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA card (the torch port's hand-written "
         "kernels); skips without one")
+    config.addinivalue_line(
+        "markers", "slow: takes minutes; tier-1 runs with -m 'not slow'")

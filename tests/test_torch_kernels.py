@@ -504,3 +504,121 @@ def test_cuda_lockstep_equals_single_stream(cuda, geom, specs):
     assert (K1.mc_predict.launches - before[0],
             KW.intra_wavefront.launches - before[1],
             KW.deblock_wavefront.launches - before[2]) == (rounds,) * 3
+
+
+# ---------------------------------------------------------------------------
+# launches from several host threads: K2 / K3's memset and launch are one
+# unit in stream order, each decoder has its own progress counters, and
+# the launch counts are exact
+# ---------------------------------------------------------------------------
+
+def test_k2_k3_from_two_threads_on_the_default_stream(cuda):
+    """Two threads launch K2 then K3 200 times each on the default stream
+    with the wrappers' shared per-stream counters (no caller workspace):
+    every result equals the plain versions', and the wrapper and device
+    counts gain exactly 400 each."""
+    import threading
+    w, h, reps = 40, 30, 200
+    cases = []
+    for seed in (700, 710):
+        Y0, C0 = (_t(a, cuda) for a in synth.planes(w, h, seed))
+        RY, RC, Pi = (_t(a, cuda) for a in synth.intra_operands(
+            w, h, seed + 1, "mixed"))
+        Pd = _t(synth.deblock_operands(w, h, seed + 2, "mixed"), cuda)
+        Yp, Cp = Y0.clone(), C0.clone()
+        intra.intra_wavefront_plain(Yp, Cp, RY, RC, Pi, w, h)
+        deblock.deblock_wavefront_plain(Yp, Cp, Pd, w, h)
+        cases.append((Y0, C0, RY, RC, Pi, Pd, Yp, Cp))
+    torch.cuda.synchronize()
+    outs, errors = [[], []], []
+
+    def run(i):
+        try:
+            Y0, C0, RY, RC, Pi, Pd = cases[i][:6]
+            for _ in range(reps):
+                Y, C = Y0.clone(), C0.clone()
+                KW.intra_wavefront(Y, C, RY, RC, Pi, w, h)
+                KW.deblock_wavefront(Y, C, Pd, w, h)
+                outs[i].append((Y, C))
+        except Exception as e:         # re-raised below, on the test's thread
+            errors.append(e)
+
+    before = (KW.intra_wavefront.launches, KW.deblock_wavefront.launches)
+    KW.device_launches(KW.INTRA, reset=True)
+    KW.device_launches(KW.DEBLOCK, reset=True)
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for i, (*_, Yp, Cp) in enumerate(cases):
+        bad = [r for r, (Y, C) in enumerate(outs[i])
+               if not (torch.equal(Y, Yp) and torch.equal(C, Cp))]
+        assert len(outs[i]) == reps and not bad, (i, bad[:10])
+    assert (KW.intra_wavefront.launches - before[0],
+            KW.deblock_wavefront.launches - before[1]) == (2 * reps,) * 2
+    assert KW.device_launches(KW.INTRA) == 2 * reps
+    assert KW.device_launches(KW.DEBLOCK) == 2 * reps
+
+
+def test_two_pumped_decoders_on_two_threads(cuda):
+    """Two decoders with the pump (the default on the card), fed from two
+    threads at once, each decoding its stream three times: the frames of
+    two sequential un-pumped decoders."""
+    import threading
+    datas = [streams.realistic_stream(width_mbs=12, height_mbs=8, n_frames=6,
+                                      n_slices=3, seed=s)[0] for s in (5, 6)]
+    wants = [[o.frame.tobytes() for o in
+              Decoder(device=cuda, async_pump=False).decode_annexb(d)]
+             for d in datas]
+    gots, errors = [None, None], []
+
+    def run(i):
+        try:
+            dec = Decoder(device=cuda, parallel_slices=2)
+            assert dec.async_pump
+            try:
+                gots[i] = [[o.frame.tobytes()
+                            for o in dec.decode_annexb(datas[i])]
+                           for _ in range(3)]
+            finally:
+                dec.close()
+        except Exception as e:         # re-raised below, on the test's thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    for got, want in zip(gots, wants):
+        assert got == [want] * 3
+
+
+def test_pump_runs_on_the_feed_threads_card_and_stream(cuda, monkeypatch):
+    """The pump's worker runs each step under the decoder's card and on
+    the stream that was current on the feed thread when the picture was
+    queued (both are per thread in CUDA); a prefetch the worker starts
+    waits on that stream."""
+    from broadway_tpu_torch.core import decoder as DEC
+    seen, step = [], DEC.decode_picture_packed2
+
+    def spy(*a, **k):
+        seen.append((torch.cuda.current_device(),
+                     torch.cuda.current_stream().cuda_stream))
+        return step(*a, **k)
+
+    monkeypatch.setattr(DEC, "decode_picture_packed2", spy)
+    data = STREAMS["realistic"]()
+    want = [o.frame.tobytes() for o in
+            Decoder(device="cpu", recon="numpy").decode_annexb(data)]
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        dec = Decoder(device=cuda, prefetch_outputs=True)
+        got = [o.frame.tobytes() for o in dec.decode_annexb(data)]
+        dec.close()
+    assert got == want
+    assert seen == [(cuda.index or 0, side.cuda_stream)] * len(want)

@@ -2,7 +2,8 @@
 (``broadway_tpu``): not at import, not while making a stream, not while
 decoding through the engine or the public entry points (API, OMX
 component, MP4 player, dectest, the lockstep group, multiinstance, frame
-groups with their graphs module, the band-sharded decode), and
+groups with their graphs module, the band-sharded decode, the dispatch
+pump, the conformance sweep, the demos and the x264 encoder), and
 chip_smoke.py neither. Checked in fresh interpreters, so
 nothing a test process imported earlier can hide an import."""
 
@@ -84,6 +85,17 @@ assert st["declined"] == 3
 assert slices.decode_streams_sliced_dp([band, band], [["cpu"] * 2] * 2,
                                        2) == [one, one]
 assert multihost.local_devices("cpu", 2) == [torch.device("cpu")] * 2
+# the dispatch pump, and the last tools: the sweep, the demos, x264
+dec = Decoder(device="cpu", async_pump=True)
+assert [o.frame.tobytes() for o in dec.decode_annexb(data)] == \
+    [o.frame.tobytes() for o in Decoder(device="cpu").decode_annexb(data)]
+dec.close()
+from broadway_tpu_torch.tools import conformance_sweep, demo, ext_encoder
+assert all(ok for _, ok in conformance_sweep.run_sweep("cpu", 1, 5))
+assert demo.tree(data, "cpu")["frames"] == 3
+if ext_encoder.available():
+    x = ext_encoder.encode_natural(64, 48, 2, seed=1)
+    assert len(Decoder(device="cpu").decode_annexb(x)) == 2
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "broadway_tpu"))
 assert not bad, bad
