@@ -103,6 +103,16 @@ failure is caught):
      NumPy path and K1 / K2 / K3 exactly 4 a picture; (e)
      tools.conformance_sweep.run_sweep("cuda", 12, 20260821), all 12
      byte-equal to the NumPy path.
+ 13. the port's benchmark in its short form, in this process:
+     tools.bench.run(plan="quick", device="cuda"): every section (e2e
+     pump on and off on phase 3's stream and the x264 fixture, lockstep
+     B = 2 on phase 9's first two streams, 2 pictures of the 3840x2160
+     realistic stream and of the dense 1080p stream, both generated in
+     side processes at start-up, the pipeline's run_stages 0-3 on phase
+     3's P picture, the stage table, host delivery and the link) present,
+     run to its end, every picture equal to the committed md5s
+     (tools/data/bench_md5.json, made by the JAX package's NumPy decoder),
+     and K1, K2 and K3 launched in it.
 The last lines of stdout: the scaling table (JSON), the kernels' JSON
 record, the nvidia-smi name/power-limit line, and {"ok": true,
 "device": ...}.
@@ -138,9 +148,8 @@ BAND_STREAMS = (
                                 n_frames=4, deblock_idc=2)),
 )
 BIG = (256, 136)             # 4096x2176: more rows than SMs, every MB busy
-# phase 12: the committed x264 fixture, the story's CIF stream, the sweep
-X264_STREAM = os.path.join(REPO, "broadway_tpu_torch", "tools", "data",
-                           "x264_natural_1080p")
+# phase 12: the story's CIF stream, the sweep (the committed x264
+# fixture is tools.bench.X264)
 STORY_STREAM = ("inter_stream", dict(width_mbs=22, height_mbs=18, n_frames=6,
                                      seed=352288, deblock=True,
                                      num_ref_frames=3, multi_ref_idx=True,
@@ -886,11 +895,8 @@ def graph_step(picture, device, reps: int, eager_host_ms: float,
 
 
 def launch_counts():
-    from broadway_tpu_torch.ops.gpu import mc_kernel as K1
-    from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
-    return {"K1_mc": K1.mc_predict.launches,
-            "K2_intra": KW.intra_wavefront.launches,
-            "K3_deblock": KW.deblock_wavefront.launches}
+    from broadway_tpu_torch.tools import bench
+    return bench.launch_counts()
 
 
 def reset_launch_counts() -> None:
@@ -1756,12 +1762,13 @@ def tools_phase(data: bytes, want_frames, k1_p_ms: float, x264: dict,
     demo.story on the CIF stream three times, and the conformance
     sweep."""
     from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
-    from broadway_tpu_torch.tools import conformance_sweep, demo, mp4mux
+    from broadway_tpu_torch.tools import (bench, conformance_sweep, demo,
+                                          mp4mux)
 
     t0 = time.perf_counter()
     xdata, info = x264["data"], x264["info"]
     out = {"card": smi, "numpy_path_s": numpy_s}
-    out["x264"] = {"stream": os.path.relpath(X264_STREAM, REPO) + ".h264",
+    out["x264"] = {"stream": os.path.relpath(bench.X264, REPO) + ".h264",
                    "made_with": info["made_with"], "settings": info["x264"],
                    "pump": pump_pair(xdata, device, "(a) x264 1080p",
                                      info["frames"], passes)}
@@ -1847,24 +1854,67 @@ def tools_phase(data: bytes, want_frames, k1_p_ms: float, x264: dict,
     return out
 
 
+def _md5_flags(obj):
+    """Every md5_ok flag of a bench line."""
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from ([v] if k == "md5_ok" else _md5_flags(v))
+    elif isinstance(obj, list):
+        for v in obj:
+            yield from _md5_flags(v)
+
+
+def bench_phase(device) -> dict:
+    """Phase 13: tools.bench.run(plan="quick") in this process (its streams
+    are phase 3's, phase 9's and the two generated at start-up, all in
+    build/'s cache by now). Every section must be there, have run to its
+    end and held every md5; K1, K2 and K3 must have launched in it."""
+    from broadway_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    lines = []
+
+    def emit(line: str) -> None:
+        lines.append(json.loads(line))
+        log(f"    {line}")
+
+    reset_launch_counts()
+    rc, last = bench.run(plan="quick", device=device, passes=2, emit=emit)
+    counts = launch_counts()
+    got = [r["section"] for r in lines]
+    if got != list(bench.SECTIONS):
+        raise AssertionError(f"bench sections {got}, expected "
+                             f"{list(bench.SECTIONS)}")
+    for r in lines:
+        flags = list(_md5_flags(r))
+        if not r["ok"] or not flags or not all(f is True for f in flags):
+            raise AssertionError(f"bench section {r['section']}: ok "
+                                 f"{r['ok']}, md5 checks {flags}, error "
+                                 f"{r['error']}")
+    if rc != 0:
+        raise AssertionError(f"bench exit code {rc}")
+    for name, c in counts.items():
+        if c <= 0:
+            raise AssertionError(f"{name} never launched in the benchmark")
+    sec = time.perf_counter() - t0
+    log(f"    {len(lines)} sections, every md5 held; launches {counts}; "
+        f"e2e {last['value']:.2f} frames/s; host probe "
+        f"{last['detail']['host_probe_parse_ms']}; phase 13 took {sec:.1f} s")
+    return {"launches": counts, "seconds": sec, "e2e_fps": last["value"],
+            "host_probe_parse_ms": last["detail"]["host_probe_parse_ms"],
+            "fps": {k: last["detail"]["sections"][s].get(k)
+                    for s, k in (("batch", "fps_batch_aggregate"),
+                                 ("4k", "fps_4k_e2e"),
+                                 ("pipeline", "fps_pipeline"),
+                                 ("dense", "fps_dense_e2e"),
+                                 ("fetch", "fps_e2e_fetch"))}}
+
+
 def story_stream_and_frames() -> tuple:
     """Phase 12's CIF story stream and its NumPy path's frames (run in a
     side process)."""
     data = band_stream(*STORY_STREAM)
     return data, numpy_frames(data)
-
-
-def load_x264() -> dict:
-    """The committed x264 stream and its JSON; the stream must hash to
-    what the JSON says."""
-    import hashlib
-    with open(X264_STREAM + ".h264", "rb") as f:
-        data = f.read()
-    with open(X264_STREAM + ".json") as f:
-        info = json.load(f)
-    if hashlib.md5(data).hexdigest() != info["stream_md5"]:
-        raise AssertionError("the x264 fixture does not hash to its JSON")
-    return {"data": data, "info": info}
 
 
 def check_no_jax() -> None:
@@ -1895,13 +1945,14 @@ def main() -> int:
     log(f"    card: {smi}; torch sees {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
 
-    # the three short streams of phase 9, the two of phase 11 and phase
-    # 12's story stream (with its NumPy decode) are generated (pure Python,
+    # the three short streams of phase 9, the two of phase 11, phase 12's
+    # story stream (with its NumPy decode) and phase 13's 4K and dense
+    # streams are generated (pure Python,
     # some seconds each) in processes of their own beside the main stream,
     # and are all there before anything is timed; phase 11 runs its NumPy
     # decodes in the same pool
     pool = multiprocessing.get_context("spawn").Pool(
-        len(LOCKSTEP_STREAMS) - 1 + len(BAND_STREAMS) + 1)
+        len(LOCKSTEP_STREAMS) - 1 + len(BAND_STREAMS) + 1 + 2)
     try:
         return run_phases(torch, smi, pool)
     finally:
@@ -1912,7 +1963,7 @@ def main() -> int:
 def run_phases(torch, smi: str, pool) -> int:
     from broadway_tpu_torch.bitstream import native as nat
     from broadway_tpu_torch.ops.gpu import _build
-    from broadway_tpu_torch.tools import bench_common
+    from broadway_tpu_torch.tools import bench, bench_common
 
     extra = [pool.apply_async(bench_common.realistic_bench_stream,
                               (120, 68), {"n_frames": n, "seed": seed})
@@ -1920,7 +1971,10 @@ def run_phases(torch, smi: str, pool) -> int:
     band_jobs = {lab: pool.apply_async(band_stream, (gen, kw))
                  for lab, gen, kw in BAND_STREAMS}
     story_job = pool.apply_async(story_stream_and_frames)
-    x264 = load_x264()
+    quick = bench.PLANS["quick"]
+    bench_jobs = [pool.apply_async(bench._generate, spec)
+                  for spec in (quick.uhd, quick.dense)]
+    x264 = bench.load_x264()
     t0 = time.perf_counter()
     fe_error = []
 
@@ -1993,8 +2047,13 @@ def run_phases(torch, smi: str, pool) -> int:
     tools = tools_phase(data, want_frames,
                         kres["K1_mc"]["per_picture"]["P"]["ms"], x264,
                         numpy_s, story_job, "cuda", smi)
+    for job in bench_jobs:
+        job.get(timeout=600)
     pool.close()
     pool.join()
+
+    log("[13] the benchmark's short form: every section, md5s held")
+    bench_res = bench_phase(device="cuda")
     check_no_jax()
     log("    neither jax nor broadway_tpu in sys.modules")
 
@@ -2069,6 +2128,8 @@ def run_phases(torch, smi: str, pool) -> int:
                 "story": [run["launches"][name]
                           for run in tools["story"]["runs"]]},
             "x264_p": None if wave else tools["x264"]["k1"],
+            # phase 13: the benchmark's short form, all sections
+            "launches_bench_path": bench_res["launches"][name],
             "synthetic": None if wave else k1_synth,
             "big": big.get(name)})
     record = {"kernels": kernels, "handoff": probe,
@@ -2081,7 +2142,7 @@ def run_phases(torch, smi: str, pool) -> int:
                        if k != "pump"},
               "tree": tools["tree"], "story": tools["story"],
               "sweep": tools["sweep"], "phase12_s": tools["seconds"],
-              "e2e_fps": fps, "frames": n,
+              "bench": bench_res, "e2e_fps": fps, "frames": n,
               "numpy_path_s": numpy_s,
               "yuv2rgb": {"rgba_int_ms": entry["rgba_int_ms"],
                           "rec709_ms": entry["rec709_ms"],
