@@ -52,16 +52,20 @@ SIGNATURES = {
     "bw_launch_probe": [_I, _I, _P],
     # cycles, stream: one thread spinning, to queue launches up behind
     "bw_hold_stream": [ct.c_longlong, _P],
-    # Y, C, RY, RC, P, table, progress, w_mbs, h_mbs, batch, stream
-    "bw_intra_wavefront": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # Y, C, RY, RC, P, table, progress, w_mbs, h_mbs, batch, cluster size,
+    # grid (CTAs), stream
+    "bw_intra_wavefront": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P],
     # Y, C, P, progress, skip (per picture, or null), w_mbs, h_mbs, batch,
-    # stream
-    "bw_deblock_wavefront": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # progress, w_mbs, h_mbs, batch, stream: the wavefront scaffold, empty
-    # MB body
-    "bw_handoff_probe": [_P, _I, _I, _I, _P],
-    # n -> previous cap on the CTAs of a wavefront launch (0: none)
-    "bw_wavefront_set_max_ctas": [_I],
+    # cluster size, grid (CTAs), stream
+    "bw_deblock_wavefront": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # progress, w_mbs, h_mbs, batch, cluster size, grid, stream: the
+    # wavefront scaffold, empty MB body
+    "bw_handoff_probe": [_P, _I, _I, _I, _I, _I, _P],
+    # w_mbs, cluster size -> clusters resident at once (< 0: CUDA error)
+    "bw_intra_resident_clusters": [_I, _I],
+    "bw_deblock_resident_clusters": [_I, _I],
+    "bw_handoff_resident_clusters": [_I, _I],
     # which (0 intra, 1 deblock, 2 probe), reset -> kernel launches so far
     "bw_wavefront_device_launches": [_I, _I],
     # which -> launches that stream captures on this thread recorded since
@@ -73,6 +77,8 @@ SIGNATURES = {
     "bw_wavefront_last_grid": [_I],
     # which -> CTAs that could be resident at once, at the newest launch
     "bw_wavefront_last_resident": [_I],
+    # which -> the cluster size of the newest launch
+    "bw_wavefront_last_cluster": [_I],
 }
 
 _lock = threading.Lock()

@@ -6,8 +6,13 @@ Replace the Pallas kernels of ``broadway_tpu/ops/tpu/wavefront_pallas.py``
 ``deblock_wavefront``). Both work in place on raster uint8 planes,
 without the TPU's diagonal-major packing (``WavefrontLayout``) or its
 one-hot MXU transposes: ONE persistent kernel launch per picture on the
-current stream, one CUDA block per MB row, rows kept in x + 2y order by
-per-row progress counters (``csrc/wavefront.cuh``). A batch of pictures
+current stream, one CUDA block per MB row, consecutive rows in
+thread-block clusters of ``CLUSTER`` CTAs, rows kept in x + 2y order by
+pels pushed into the lower CTA's shared memory inside a cluster and by
+per-row progress counters across clusters (``csrc/wavefront.cuh``). The
+launch's geometry (cluster size, clusters, grid) comes from
+``launch_geometry``, the one place that decides it; the C launch checks
+it and launches it. A batch of pictures
 of one geometry (the streams of a lockstep round; the TPU kernels' LANE
 axis) is one launch too: its rows are every picture's rows, and each
 picture's first row starts at once. The counters are a small int32
@@ -22,8 +27,8 @@ Each wrapper takes the plain version (ops/gpu/intra.py, deblock.py) for
 CPU tensors and launches the kernel for CUDA tensors; ``launches``
 counts the wrapper calls whose kernel ran (a launch recorded by a graph
 capture counts at each replay, ``_build.count_launch``). The launch is
-cooperative: if the card refuses it, the wrapper raises, and never goes
-back to per-diagonal launches or to the plain version.
+clustered and cooperative: if the card refuses it, the wrapper raises,
+and never goes back to another launch form or to the plain version.
 """
 
 from __future__ import annotations
@@ -39,9 +44,67 @@ from .tables import tables
 
 
 INTRA, DEBLOCK, PROBE = 0, 1, 2      # bwwf::Which of csrc/wavefront.cuh
+CLUSTER = 8         # MB rows a cluster holds: the portable maximum
+MAX_CLUSTER = 16    # the card's (non-portable) maximum
 
 _progress = {}      # (device index, stream) -> int32 [rows] counters
 _progress_lock = threading.Lock()
+_resident = {}      # (device index, which, w_mbs, C) -> clusters
+_geometries = {}    # (device, which, w_mbs, rows, C, cap) -> geometry
+_max_ctas = 0       # the test-only cap (set_max_ctas); 0: none
+_RESIDENT_FN = {INTRA: "bw_intra_resident_clusters",
+                DEBLOCK: "bw_deblock_resident_clusters",
+                PROBE: "bw_handoff_resident_clusters"}
+
+
+def launch_geometry(rows: int, resident_clusters: int,
+                    cluster: int = CLUSTER, max_ctas: int = 0) -> tuple:
+    """(C, clusters, grid) of a wavefront launch over `rows` MB rows (every
+    picture's rows of a batch): clusters of C = `cluster` CTAs, as many as
+    the row blocks of C rows need, at most the `resident_clusters` the card
+    holds at once (a cooperative launch must be co-resident), and at most
+    `max_ctas` CTAs in whole clusters when that test-only cap is set (at
+    least one cluster). Cluster k then takes row blocks k, k + clusters,
+    ... in increasing order (``bwwf::Wave::row_at``)."""
+    if rows < 1:
+        raise ValueError(f"a wavefront launch needs rows, got {rows}")
+    if not 1 <= cluster <= MAX_CLUSTER:
+        raise ValueError(f"cluster size {cluster} is not in 1..{MAX_CLUSTER}")
+    if resident_clusters < 1:
+        raise RuntimeError(f"no cluster of {cluster} CTAs can be resident "
+                           "on this card")
+    clusters = min(-(-rows // cluster), resident_clusters)
+    if max_ctas > 0:
+        clusters = min(clusters, max(1, max_ctas // cluster))
+    return cluster, clusters, clusters * cluster
+
+
+def resident_clusters(which: int, w_mbs: int, dev: torch.device,
+                      cluster: int = CLUSTER) -> int:
+    """Clusters of `cluster` CTAs of wavefront `which` that the card holds
+    at once for a w_mbs-wide picture (cudaOccupancyMaxActiveClusters;
+    cached per device)."""
+    key = (dev.index, which, w_mbs, cluster)
+    n = _resident.get(key)
+    if n is None:
+        with torch.cuda.device(dev):
+            n = getattr(_build.load(), _RESIDENT_FN[which])(w_mbs, cluster)
+        if n < 0:
+            _build.check(-n, _RESIDENT_FN[which])
+        _resident[key] = n
+    return n
+
+
+def _geometry(which: int, w_mbs: int, rows: int, dev: torch.device,
+              cluster: int = CLUSTER) -> tuple:
+    key = (dev.index, which, w_mbs, rows, cluster, _max_ctas)
+    g = _geometries.get(key)
+    if g is None:
+        g = launch_geometry(rows, resident_clusters(which, w_mbs, dev,
+                                                    cluster),
+                            cluster, _max_ctas)
+        _geometries[key] = g
+    return g
 
 
 def _check_planes(Y, C, w_mbs, h_mbs) -> int:
@@ -108,29 +171,40 @@ def last_grid(which: int) -> int:
     return _build.load().bw_wavefront_last_grid(which)
 
 
+def last_cluster(which: int) -> int:
+    """The cluster size C of the newest launch of wavefront `which`."""
+    return _build.load().bw_wavefront_last_cluster(which)
+
+
 def set_max_ctas(n: int) -> int:
     """A test-only knob, not part of the decoding interface: cap every
-    wavefront launch at n CTAs (0 lifts the cap) so that a small picture
-    drives the more-rows-than-CTAs stride; returns the previous cap. The
-    cap is one process-wide int read without a lock by every launch, so
-    it is not safe beside a decoder's slice-pool threads or a decoder
-    running on another thread: set it only while nothing else decodes.
-    No decoding path calls this."""
-    return _build.load().bw_wavefront_set_max_ctas(n)
+    wavefront launch at n CTAs, in whole clusters and at least one (0
+    lifts the cap), so that a small picture drives the more-rows-than-
+    clusters stride; returns the previous cap. The cap is one process-wide
+    int read without a lock by every launch, so it is not safe beside a
+    decoder's slice-pool threads or a decoder running on another thread:
+    set it only while nothing else decodes. No decoding path calls this."""
+    global _max_ctas
+    old, _max_ctas = _max_ctas, max(0, int(n))
+    return old
 
 
 def last_resident(which: int) -> int:
-    """CTAs of wavefront `which` that the card could hold at once, as the
-    occupancy calculator said at its newest launch: a launch with more
-    rows than this strides its rows over that many CTAs."""
+    """CTAs of wavefront `which` that the card could hold at once, in
+    whole clusters, as the occupancy calculator said at its newest launch:
+    a launch with more rows than this strides its row blocks over that
+    many clusters."""
     return _build.load().bw_wavefront_last_resident(which)
 
 
-def handoff_probe(w_mbs: int, h_mbs: int, device, batch: int = 1) -> None:
+def handoff_probe(w_mbs: int, h_mbs: int, device, batch: int = 1,
+                  cluster: int = CLUSTER) -> None:
     """Launch the wavefront scaffold with an empty MB body over `batch`
     grids of w_mbs x h_mbs side by side: w + 2 (h - 1) dependent hand-offs
     in each and nothing else (the dependency floor of K2 and K3 on this
-    card at that batch)."""
+    card at that batch). `cluster` is the probe's own: C rows a cluster
+    (1: every hand-off through global memory, across clusters); K2 and K3
+    always take ``CLUSTER``."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("handoff_probe runs on a CUDA device only")
@@ -140,8 +214,10 @@ def handoff_probe(w_mbs: int, h_mbs: int, device, batch: int = 1) -> None:
         dev = torch.device("cuda", torch.cuda.current_device())
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = _workspace(dev, stream, batch * h_mbs)
-    err = _build.load().bw_handoff_probe(ws.data_ptr(), w_mbs, h_mbs, batch,
-                                         stream)
+    C, _, grid = _geometry(PROBE, w_mbs, batch * h_mbs, dev, cluster)
+    with torch.cuda.device(dev):
+        err = _build.load().bw_handoff_probe(ws.data_ptr(), w_mbs, h_mbs,
+                                             batch, C, grid, stream)
     _build.check(err, "bw_handoff_probe")
 
 
@@ -170,11 +246,12 @@ def intra_wavefront(Y: torch.Tensor, C: torch.Tensor, RY: torch.Tensor,
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = _workspace(dev, stream, B * h_mbs, workspace)
-    with torch.cuda.device(dev):     # the occupancy query and the launch
+    cl, _, grid = _geometry(INTRA, w_mbs, B * h_mbs, dev)
+    with torch.cuda.device(dev):     # the launch on the operands' card
         err = lib.bw_intra_wavefront(
             Y.data_ptr(), C.data_ptr(), RY.data_ptr(), RC.data_ptr(),
             P.data_ptr(), tab.data_ptr(), ws.data_ptr(), w_mbs, h_mbs, B,
-            stream)
+            cl, grid, stream)
     _build.check(err, "bw_intra_wavefront")
     _build.count_launch(intra_wavefront)
 
@@ -202,11 +279,12 @@ def deblock_wavefront(Y: torch.Tensor, C: torch.Tensor, P: torch.Tensor,
     lib = _build.load()
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws = _workspace(dev, stream, B * h_mbs, workspace)
+    cl, _, grid = _geometry(DEBLOCK, w_mbs, B * h_mbs, dev)
     with torch.cuda.device(dev):
         err = lib.bw_deblock_wavefront(
             Y.data_ptr(), C.data_ptr(), P.data_ptr(), ws.data_ptr(),
             None if skip is None else skip.data_ptr(), w_mbs, h_mbs, B,
-            stream)
+            cl, grid, stream)
     _build.check(err, "bw_deblock_wavefront")
     _build.count_launch(deblock_wavefront)
 

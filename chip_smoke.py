@@ -20,8 +20,12 @@ failure is caught):
      csrc/probe.cu), and on two synthetic 1080p vector fields with 16
      different vectors per MB, where it is slowest; the wavefront
      hand-off floor (the scaffold of K2/K3 with an empty MB body over
-     120x68 MBs); each picture of each kernel is held to the larger of
-     its bound and its floor, ratio printed; then each kernel on a BATCH
+     120x68 MBs, in thread-block clusters of 8 rows as K2/K3 launch), one
+     step of it inside a cluster and across clusters (120x8 MBs with C = 8
+     and C = 1), the cluster size and the clusters resident; K2 and K3
+     must launch in clusters; each picture of each kernel is held to the
+     larger of its bound and its floor, ratio printed; then each kernel
+     on a BATCH
      of the stream's first four pictures (IDR, P, P, P: one launch for
      all four), byte-equal to its plain version and to four launches of
      one picture, timed beside them; and the scaling table: for B = 1,
@@ -29,7 +33,9 @@ failure is caught):
      enqueue and device span, K1 / K2 / K3 and the hand-off probe at
      that B, the grid of K2 / K3 and the CTAs the card holds resident
   5. K2 and K3 at 4096x2176 (256x136 MBs, every MB with work, synthetic
-     operands from a seed): kernel against plain over the whole picture
+     operands from a seed): kernel against plain over the whole picture,
+     with the grid, cluster size and resident CTAs of each launch and the
+     hand-off floors at that size
   6. the per-picture step on the P picture: host enqueue, device span,
      device kernels per step; beside it the same step as a CUDA graph of
      one picture (core.graphs.GroupGraph): byte-equal to the eager step,
@@ -416,7 +422,16 @@ def kernel_phase(pictures, device, seed: int = 0, reps: int = 10,
                                        "bound_ms": bnd["bound_ms"],
                                        "bound_by": bnd["bound_by"],
                                        "busy_mbs": busy}
-            log(f"  {name} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            if not hold_ms:
+                # the same launches behind a held stream: the device's
+                # time alone, where a short launch would read its enqueue
+                dms = cuda_ms(run, reps, HOLD_MS)
+                r["per_picture"][label]["device_ms"] = dms
+                r.setdefault("device_ms", []).append(dms)
+            dev_txt = ("" if hold_ms else f" (held stream: "
+                       f"{r['per_picture'][label]['device_ms']:.4f} ms)")
+            log(f"  {name} {label}: kernel {ms:.4f} ms{dev_txt}, plain "
+                f"{pms:.4f} ms, "
                 f"bound {bnd['bound_ms']:.5f} ms ({bnd['bound_by']}, "
                 f"{bnd['bound_bytes']} B"
                 + (f", {busy} busy MBs" if busy is not None else "")
@@ -469,9 +484,18 @@ def kernel_phase(pictures, device, seed: int = 0, reps: int = 10,
                lambda: deblock.deblock_wavefront_plain(Ys, Cs, Pd, w, h),
                label, bnd, busy)
 
+    if on_cuda:
+        # the 1080p launches' geometry: clusters of KW.CLUSTER rows
+        for name, which in (("K2_intra", KW.INTRA),
+                            ("K3_deblock", KW.DEBLOCK)):
+            res[name].update(cluster=KW.last_cluster(which),
+                             grid=KW.last_grid(which),
+                             resident_ctas=KW.last_resident(which))
+            if res[name]["cluster"] <= 1:
+                raise AssertionError(f"{name} did not launch in clusters")
     for r in res.values():
         for k in ("ms", "plain_ms", "bound_ms", "bound_bytes",
-                  "bound_launch_ms"):
+                  "bound_launch_ms", "device_ms"):
             if k in r:
                 r[k] = sum(r[k]) / len(r[k]) if r[k] else None
     return res
@@ -479,15 +503,31 @@ def kernel_phase(pictures, device, seed: int = 0, reps: int = 10,
 
 def handoff_phase(w: int, h: int, device, reps: int = 20) -> dict:
     """The dependency floor of a wavefront kernel: the scaffold with an
-    empty MB body over w x h MBs is w + 2 (h - 1) hand-offs in a row."""
+    empty MB body over w x h MBs is w + 2 (h - 1) hand-offs in a row, in
+    clusters of KW.CLUSTER rows as K2 and K3 run. Beside it, one step of
+    the chain inside a cluster (C rows in one cluster: every hand-off
+    through the ring) and across clusters (the same rows with C = 1: every
+    hand-off through the global counters), over w x C MBs."""
     from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
+    C = KW.CLUSTER
     ms = cuda_ms(lambda: KW.handoff_probe(w, h, device), reps)
+    grid, resident = KW.last_grid(KW.PROBE), KW.last_resident(KW.PROBE)
     chain = w + 2 * (h - 1)
+    short = w + 2 * (C - 1)
+    in_ms = cuda_ms(lambda: KW.handoff_probe(w, C, device), reps)
+    across_ms = cuda_ms(lambda: KW.handoff_probe(w, C, device, cluster=1),
+                        reps)
+    out = {"handoff_floor_ms": ms, "handoffs": chain,
+           "handoff_us": 1e3 * ms / chain, "cluster": C, "grid": grid,
+           "resident_ctas": resident, "resident_clusters": resident // C,
+           "in_cluster_us": 1e3 * in_ms / short,
+           "across_cluster_us": 1e3 * across_ms / short}
     log(f"  hand-off floor {w}x{h}: {ms:.4f} ms for {chain} dependent "
-        f"hand-offs = {1e3 * ms / chain:.3f} us each "
-        f"({KW.last_grid(KW.PROBE)} CTAs)")
-    return {"handoff_floor_ms": ms, "handoffs": chain,
-            "handoff_us": 1e3 * ms / chain}
+        f"hand-offs = {out['handoff_us']:.3f} us each ({grid} CTAs in "
+        f"clusters of {C}, {resident // C} clusters resident); one step "
+        f"over {w}x{C} MBs: {out['in_cluster_us']:.3f} us inside a cluster, "
+        f"{out['across_cluster_us']:.3f} us across clusters")
+    return out
 
 
 def big_phase(device, seed: int = 2176, reps: int = 5) -> dict:
@@ -519,7 +559,9 @@ def big_phase(device, seed: int = 2176, reps: int = 5) -> dict:
         raise AssertionError(f"K2_intra differs from plain at {w}x{h} MBs")
     ms = cuda_ms(lambda: KW.intra_wavefront(Yk, Ck, RY, RC, P, w, h), reps)
     out["K2_intra"] = {"ms": ms, "plain_ms": 1e3 * plain_s,
-                       "grid": KW.last_grid(KW.INTRA)}
+                       "grid": KW.last_grid(KW.INTRA),
+                       "cluster": KW.last_cluster(KW.INTRA),
+                       "resident_ctas": KW.last_resident(KW.INTRA)}
 
     Y0, C0 = (t(a) for a in synth.planes(w, h, seed + 2, smooth=True))
     P = t(synth.deblock_operands(w, h, seed + 3, "intra"))
@@ -535,12 +577,16 @@ def big_phase(device, seed: int = 2176, reps: int = 5) -> dict:
         raise AssertionError(f"K3_deblock differs from plain at {w}x{h} MBs")
     ms = cuda_ms(lambda: KW.deblock_wavefront(Yk, Ck, P, w, h), reps)
     out["K3_deblock"] = {"ms": ms, "plain_ms": 1e3 * plain_s,
-                         "grid": KW.last_grid(KW.DEBLOCK)}
+                         "grid": KW.last_grid(KW.DEBLOCK),
+                         "cluster": KW.last_cluster(KW.DEBLOCK),
+                         "resident_ctas": KW.last_resident(KW.DEBLOCK)}
     for k, v in out.items():
         log(f"  {k} {w}x{h} MBs, every MB busy: kernel {v['ms']:.4f} ms, "
-            f"plain {v['plain_ms']:.1f} ms, {v['grid']} CTAs, byte-equal")
+            f"plain {v['plain_ms']:.1f} ms, {v['grid']} CTAs in clusters "
+            f"of {v['cluster']} ({v['resident_ctas']} resident), byte-equal")
     probe = handoff_phase(w, h, device, reps=5)
     out["handoff_floor_ms"] = probe["handoff_floor_ms"]
+    out["handoff"] = probe
     return out
 
 
@@ -778,7 +824,8 @@ def scaling_phase(pics, idr, device, reps: int = 20) -> list:
         row.update(K2_grid=KW.last_grid(KW.INTRA),
                    K2_resident_ctas=KW.last_resident(KW.INTRA),
                    K3_grid=KW.last_grid(KW.DEBLOCK),
-                   K3_resident_ctas=KW.last_resident(KW.DEBLOCK))
+                   K3_resident_ctas=KW.last_resident(KW.DEBLOCK),
+                   cluster=KW.last_cluster(KW.DEBLOCK))
         row["handoff_ms"] = cuda_ms(
             lambda: KW.handoff_probe(w, h, device, batch=B), reps)
         row["handoff_grid"] = KW.last_grid(KW.PROBE)
@@ -2092,6 +2139,9 @@ def run_phases(torch, smi: str, pool) -> int:
             "device_launches_per_picture": per_pic[name],
             "bound_bytes": r["bound_bytes"],
             "bound_handoff_ms": floor if wave else None,
+            # K2 / K3 behind a held stream (device time alone), mean of
+            # the pictures; ms above is timed back to back, as before
+            "device_ms": r.get("device_ms"),
             "bound_launch_ms": None if wave else floor,
             # means over the pictures, like ms and bound_ms; what each
             # picture is held to, by what, and its ratio: per_picture
@@ -2131,7 +2181,15 @@ def run_phases(torch, smi: str, pool) -> int:
             # phase 13: the benchmark's short form, all sections
             "launches_bench_path": bench_res["launches"][name],
             "synthetic": None if wave else k1_synth,
-            "big": big.get(name)})
+            "big": big.get(name),
+            # the clustered launch at 1080p, and the hand-off floors of the
+            # probe (phase 4: one step inside a cluster and across)
+            "cluster": r.get("cluster"), "grid": r.get("grid"),
+            "resident_clusters": (r["resident_ctas"] // r["cluster"]
+                                  if wave else None),
+            "handoff_in_cluster_us": probe["in_cluster_us"] if wave else None,
+            "handoff_across_cluster_us": (probe["across_cluster_us"]
+                                          if wave else None)})
     record = {"kernels": kernels, "handoff": probe,
               "big_handoff_floor_ms": big["handoff_floor_ms"],
               "step": step, "lockstep": lockstep, "groups": groups,

@@ -178,7 +178,10 @@ def test_cuda_decoder_equals_numpy(cuda, name):
 # operands: edge geometries, every kind of picture, the row stride
 # ---------------------------------------------------------------------------
 
-GEOMETRIES = [(1, 1), (1, 7), (9, 1), (3, 2), (120, 68)]
+# heights around the cluster edges (C = KW.CLUSTER = 8 rows a cluster):
+# C - 1, C, C + 1 and 2C + 1 rows, and the 4K picture's odd 135 rows
+GEOMETRIES = [(1, 1), (1, 7), (9, 1), (3, 2), (120, 68), (4, 7), (7, 8),
+              (6, 9), (5, 17), (240, 135)]
 
 
 def _t(a, dev):
@@ -227,18 +230,21 @@ def test_k3_persistent_geometries(cuda, geom, kind):
 @pytest.mark.parametrize("kind", synth.KINDS)
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 def test_more_rows_than_resident_ctas(cuda, kernel, kind):
-    """23 rows on a grid capped at 5 CTAs: each CTA takes rows y, y + 5,
-    ... in increasing order and must neither deadlock nor differ."""
+    """23 rows (3 row blocks of 8) on a grid capped at 2 clusters: cluster
+    k takes row blocks k, k + 2, ... in increasing order, and the ring of
+    a CTA is used again for its next row; it must neither deadlock nor
+    differ. A cap of 20 CTAs is 2 whole clusters."""
     run, which = {"K2": (_run_intra, KW.INTRA),
                   "K3": (_run_deblock, KW.DEBLOCK)}[kernel]
-    old = KW.set_max_ctas(5)
+    old = KW.set_max_ctas(20)
     try:
         run(cuda, 17, 23, kind, seed=300)
-        assert KW.last_grid(which) == 5
+        assert KW.last_grid(which) == 16
+        assert KW.last_cluster(which) == KW.CLUSTER
     finally:
         KW.set_max_ctas(old)
     run(cuda, 17, 23, kind, seed=300)
-    assert KW.last_grid(which) == 23
+    assert KW.last_grid(which) == 24
 
 
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
@@ -261,10 +267,15 @@ def test_one_device_launch_per_picture(cuda):
 
 
 def test_handoff_probe_runs(cuda):
+    """The probe at the cluster size K2 / K3 take, with every hand-off
+    across clusters (C = 1), and at the card's non-portable 16."""
     KW.device_launches(KW.PROBE, reset=True)
-    KW.handoff_probe(120, 68, cuda)
-    torch.cuda.synchronize()
-    assert KW.device_launches(KW.PROBE) == 1
+    for c in (KW.CLUSTER, 1, 16):
+        KW.handoff_probe(120, 68, cuda, cluster=c)
+        torch.cuda.synchronize()
+        assert KW.last_cluster(KW.PROBE) == c
+        assert KW.last_grid(KW.PROBE) % c == 0
+    assert KW.device_launches(KW.PROBE) == 3
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +402,8 @@ def _check_wave_batch(dev, kernel, B, w, h, seed, singles=True):
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 def test_wavefront_batched_equals_plain_and_single_launches(cuda, kernel, B):
     _check_wave_batch(cuda, kernel, B, 13, 6, seed=600 + B)
-    assert KW.last_grid(KW.INTRA if kernel == "K2" else KW.DEBLOCK) == 6
+    # the last launch: one picture of 6 rows, one cluster of 8 CTAs
+    assert KW.last_grid(KW.INTRA if kernel == "K2" else KW.DEBLOCK) == 8
 
 
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
@@ -422,19 +434,73 @@ def test_wavefront_batch_streams_do_not_meet(cuda, kernel):
 
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
 def test_wavefront_batch_on_a_capped_grid(cuda, kernel):
-    """3 streams of 3 rows on 5 CTAs: a CTA walks rows of two streams,
-    and the cap is no multiple of the rows of a stream."""
+    """3 streams of 3 rows on one cluster (a cap of 12 CTAs is one whole
+    cluster of 8): a CTA walks rows of two streams, and the rows of a
+    stream are no multiple of the cluster; then 8 streams of 7 rows (56
+    rows, 7 row blocks) on that one cluster."""
     which = KW.INTRA if kernel == "K2" else KW.DEBLOCK
-    old = KW.set_max_ctas(5)
+    old = KW.set_max_ctas(12)
     try:
         _check_wave_batch(cuda, kernel, 3, 17, 3, seed=900, singles=False)
-        assert KW.last_grid(which) == 5
+        assert KW.last_grid(which) == 8
         _check_wave_batch(cuda, kernel, 8, 5, 7, seed=901, singles=False)
-        assert KW.last_grid(which) == 5
+        assert KW.last_grid(which) == 8
     finally:
         KW.set_max_ctas(old)
     _check_wave_batch(cuda, kernel, 3, 17, 3, seed=900, singles=False)
-    assert KW.last_grid(which) == 9
+    assert KW.last_grid(which) == 16
+
+
+# (w, h, B): clusters of 8 rows that start in one picture and end in the
+# next, at several offsets
+SPANS = [(9, 5, 3), (4, 9, 2), (6, 3, 5), (11, 12, 2)]
+
+
+@pytest.mark.parametrize("geom", SPANS, ids=lambda g: f"{g[0]}x{g[1]}x{g[2]}")
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_wavefront_cluster_spans_two_pictures(cuda, kernel, geom):
+    """A cluster whose ranks hold the last rows of one picture and the
+    first rows of the next: the ring never carries a row across the seam,
+    and each picture's first row waits for nothing."""
+    w, h, B = geom
+    assert any(r // h != (r + 1) // h for r in range(B * h - 1)
+               if (r + 1) % KW.CLUSTER)
+    _check_wave_batch(cuda, kernel, B, w, h, seed=1100 + h)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_captured_cluster_launch_replays_byte_equal(cuda, kernel):
+    """Stream capture records the clustered cooperative launch (and its
+    counter memset); the graph's replays give the plain version's bytes."""
+    w, h, B = 13, 10, 2                 # 20 rows: 3 clusters, one spans
+    which = KW.INTRA if kernel == "K2" else KW.DEBLOCK
+    Y0, C0, ops = _wave_batch(cuda, kernel, B, w, h, seed=1200)
+    Yp, Cp = Y0.clone(), C0.clone()
+    _plain(kernel, Yp, Cp, ops, w, h)
+    Yk, Ck = Y0.clone(), C0.clone()
+    ws = torch.zeros(B * h, dtype=torch.int32, device=cuda)
+    wave = KW.intra_wavefront if kernel == "K2" else KW.deblock_wavefront
+
+    def step():
+        Yk.copy_(Y0)
+        Ck.copy_(C0)
+        wave(Yk, Ck, *ops, w, h, workspace=ws)
+
+    step()                              # eager: builds, sizes the grid
+    torch.cuda.synchronize()
+    assert torch.equal(Yk, Yp) and torch.equal(Ck, Cp)
+    KW.take_captured(which)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        step()
+    assert KW.take_captured(which) == 1
+    for _ in range(3):
+        Yk.zero_()
+        Ck.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(Yk, Yp) and torch.equal(Ck, Cp)
+    assert KW.last_cluster(which) == KW.CLUSTER
 
 
 @pytest.mark.parametrize("kernel", ["K2", "K3"])
@@ -470,7 +536,7 @@ def test_handoff_probe_takes_a_batch(cuda):
     for B in (1, 4, 8):
         KW.handoff_probe(120, 68, cuda, batch=B)
         torch.cuda.synchronize()
-        assert KW.last_grid(KW.PROBE) == min(68 * B,
+        assert KW.last_grid(KW.PROBE) == min(-(-68 * B // 8) * 8,
                                              KW.last_resident(KW.PROBE))
     assert KW.device_launches(KW.PROBE) == 3
 
