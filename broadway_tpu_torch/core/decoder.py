@@ -18,12 +18,14 @@ imports nothing of that package:
            plain versions); recon="numpy" runs core/recon_cpu.py on the
            host instead, the reference inside the port
   Stage C  frame state          -> DPB / POC / output ordering (core/)
-Frame groups (``group_frames=G``) are ported: G pictures run as one
-captured CUDA graph (core/graphs.py), and their frames are lazy. So is the
-dispatch pump (``async_pump``): the upload and the per-picture step of
-each v2 picture run on one worker thread, in submission order, beside the
-feed thread's parse of the next picture. The JAX package's compile cache
-has no counterpart here.
+On a card the per-picture step of a v2 picture is one CUDA graph per key,
+as it is one jit call per static key in the JAX package, and a frame
+group (``group_frames=G``) is one graph of G pictures (core/graphs.py);
+group frames are lazy. The graphs are captured on reference stacks leased
+from a process-wide pool, so they outlive a decoder as the jit cache
+does. The dispatch pump (``async_pump``) runs the upload and the
+per-picture step of each v2 picture on one worker thread, in submission
+order, beside the feed thread's parse of the next picture.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import contextlib
 import copy
 import dataclasses
 import threading
+import weakref
 from concurrent import futures
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
@@ -50,10 +53,11 @@ from ..bitstream.slice_group_map import build_slice_group_map
 from ..bitstream.slice_header import (I_SLICE, P_SLICE, SliceHeader,
                                       parse_slice_header)
 from . import deblock as deblock_mod
+from . import graphs as GR
 from . import packed as PK
 from .conceal import conceal_picture, mark_slice_corrupted
 from .dpb import Dpb, DpbPicture
-from .graphs import GroupGraphs
+from .graphs import GroupGraphs, StackSet
 from .poc import PocState, decode_poc
 from .recon import (LazyTorchFrame, TorchFrame, decode_arrays_into_slot,
                     decode_picture_packed, decode_picture_packed2,
@@ -168,7 +172,8 @@ class Decoder:
         # "cuda" one captured CUDA graph per key, core/graphs.py); their
         # frames are LazyTorchFrames that force the pending group on first
         # access. 0 (the default, as in the JAX package) or 1: one step per
-        # picture.
+        # picture (on "cuda" one graph per key, captured at the key's
+        # second picture).
         # prefetch_outputs: start each output frame's device-to-host copy
         # (TorchFrame.start_fetch) as soon as it reaches display order.
         # async_pump: run the upload and the per-picture step of each v2
@@ -220,8 +225,13 @@ class Decoder:
         self._executor = None
         if parallel_slices > 1 and self.frontend == "native":
             self._executor = ThreadPoolExecutor(parallel_slices)
-        self._dstack_key = None
-        self._stack_y = self._stack_c = None
+        # the reference stacks, leased from core.graphs.STACK_POOL with the
+        # graphs captured on them and K2/K3's progress counters for the
+        # eager steps (this decoder's own: decoders on other threads never
+        # share them); _give_back returns them, also if the decoder is
+        # dropped without close()
+        self._stacks: Optional[StackSet] = None
+        self._give_back = None
         self.pack = pack
         self._pack2_scratch = None
         self._pack_scratch = None
@@ -229,15 +239,11 @@ class Decoder:
         self.prefetch_outputs = prefetch_outputs
         self._group_pend: List[_Pending] = []
         self._group_lock = threading.Lock()
-        self.group_graphs = GroupGraphs()
         self.async_pump = bool(async_pump)
         self._pump = None                  # the worker, made at first use
         self._pump_pend: List[futures.Future] = []
         self._pump_lock = threading.Lock()
         self._pump_failed: Optional[BaseException] = None
-        # K2/K3's progress counters, this decoder's own: decoders on other
-        # threads never share them, whatever the stream
-        self._progress = None
         self.sps_store: Dict[int, Sps] = {}
         self.pps_store: Dict[int, Pps] = {}
         self.active_sps_id: Optional[int] = None
@@ -636,9 +642,10 @@ class Decoder:
 
     def close(self) -> None:
         """Drain the pump and run the pending frame group, then release
-        the pump's and the slice pool's worker threads (also when the
-        drain raises a failed step's error). The decoder is unusable for
-        further decode calls after this."""
+        the pump's and the slice pool's worker threads and give the
+        reference stacks back to the pool (also when the drain raises a
+        failed step's error). The decoder is unusable for further decode
+        calls after this."""
         try:
             self._flush_group()
         finally:
@@ -648,18 +655,45 @@ class Decoder:
             if self._executor is not None:
                 self._executor.shutdown(wait=True)
                 self._executor = None
+            self._return_stacks()
+
+    @property
+    def group_graphs(self) -> Optional[GroupGraphs]:
+        """The graphs of the leased stacks (None while none are leased)."""
+        return None if self._stacks is None else self._stacks.graphs
+
+    def _picture_step(self, stacks: StackSet, buf: np.ndarray, slot: int,
+                      lay: PK.PackedLayoutV2, bk: tuple, ci: bool, co: int
+                      ) -> TorchFrame:
+        """The per-picture step of one v2 picture on `stacks`, on this
+        thread's stream. On a card the graph of its key
+        (``GroupGraphs.step``: replayed, or captured at the key's second
+        picture); a key's first picture there, and every picture on the
+        CPU, runs the eager step."""
+        stacks.note_stream()
+        if not GR.runs_eagerly(stacks.device):
+            yuv = stacks.graphs.step(buf, slot, stacks.stack_y,
+                                     stacks.stack_c, lay, bk, ci, co)
+            if yuv is not None:
+                return TorchFrame(yuv, 16 * lay.w, 16 * lay.h)
+        stacks.graphs.counts["eager"] += 1
+        return decode_picture_packed2(
+            torch.from_numpy(buf).to(self.device), stacks.stack_y,
+            stacks.stack_c, slot, lay, bk, ci, co,
+            workspace=stacks.progress)
 
     def _pump_picture(self, buf: np.ndarray, bk: tuple,
                       lay: PK.PackedLayoutV2, ci: bool, co: int
                       ) -> LazyTorchFrame:
         """Queue the upload and the per-picture step of a v2 picture on the
-        pump. The stacks, the slot and the workspace are taken now, on the
-        feed thread; the job runs on the worker under this decoder's card
-        and on the stream that is current here now (both are per thread:
-        without them a cuda:1 decoder's job would launch on card 0)."""
-        sy, sc, ws = self._stack_y, self._stack_c, self._progress
+        pump. The stacks and the slot are taken now, on the feed thread;
+        the job runs on the worker under this decoder's card and on the
+        stream that is current here now (both are per thread: without them
+        a cuda:1 decoder's job would launch on card 0), and captures or
+        replays its key's graph there."""
+        stacks = self._stacks
         slot = self.dpb.current.slot
-        dev = sy.device
+        dev = stacks.device
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" \
             else None
 
@@ -672,9 +706,8 @@ class Decoder:
                 if stream is not None:
                     on_card.enter_context(torch.cuda.device(dev))
                     on_card.enter_context(torch.cuda.stream(stream))
-                frame._set(decode_picture_packed2(
-                    torch.from_numpy(buf).to(dev), sy, sc, slot, lay, bk,
-                    ci, co, workspace=ws))
+                frame._set(self._picture_step(stacks, buf, slot, lay, bk,
+                                              ci, co))
 
         with self._pump_lock:
             self._pump_reap(wait=False)
@@ -731,19 +764,19 @@ class Decoder:
             if not pend:
                 return
             lay, ci, co = pend[0].cfg
+            stacks = self._stacks
             if len(pend) == 1:
                 p = pend[0]
-                p.frame._set(decode_picture_packed2(
-                    torch.from_numpy(p.buf).to(self.device), self._stack_y,
-                    self._stack_c, p.slot, lay, p.bk, ci, co,
-                    workspace=self._progress))
+                p.frame._set(self._picture_step(stacks, p.buf, p.slot, lay,
+                                                p.bk, ci, co))
                 return
             BK = tuple(max(p.bk[j] for p in pend) for j in range(3))
             bufs = np.stack([PK.expand_buf_v2(p.buf, lay, p.bk, BK)
                              for p in pend])
-            yuvs = self.group_graphs.run(bufs, [p.slot for p in pend],
-                                         self._stack_y, self._stack_c, lay,
-                                         BK, ci, co)
+            stacks.note_stream()
+            yuvs = stacks.graphs.run(bufs, [p.slot for p in pend],
+                                     stacks.stack_y, stacks.stack_c, lay, BK,
+                                     ci, co)
             for p, yuv in zip(pend, yuvs):
                 p.frame._set(TorchFrame(yuv, 16 * lay.w, 16 * lay.h))
 
@@ -786,32 +819,39 @@ class Decoder:
         if not isinstance(frame, TorchFrame):
             frame = TorchFrame.from_planes(frame.y, frame.cb, frame.cr,
                                            self.device)
-        update_stack_slot(self._stack_y, self._stack_c, slot, frame)
+        stacks = self._stacks
+        stacks.note_stream()
+        update_stack_slot(stacks.stack_y, stacks.stack_c, slot, frame)
         return frame
 
     def _ensure_stacks(self) -> None:
-        """(Re)create the reference-plane stacks for the active sequence
-        (R = dpb_size + 1 slots), seeding them from any DPB frames
-        already present (load_state / concealed-first-picture paths)."""
+        """Lease the reference-plane stacks for the active sequence (R =
+        dpb_size + 1 slots) from the process's pool (core/graphs.py:
+        zeroed, with the graphs captured on them), giving back the
+        previous ones first; seed them from any DPB frames already present
+        (load_state / concealed-first-picture paths)."""
         sps = self.sps
         R = self.dpb.dpb_size + 1
-        key = (sps.width_mbs, sps.height_mbs, R)
-        if self._dstack_key == key:
+        if self._stacks is not None and \
+                self._stacks.geometry == (sps.width, sps.height, R):
             return
-        self._flush_group()       # the old stacks' group runs first
-        self.group_graphs.clear()
-        H, W = sps.height, sps.width
-        self._stack_y = torch.zeros((R, H, W), dtype=torch.uint8,
-                                    device=self.device)
-        self._stack_c = torch.zeros((R, 2, H // 2, W // 2),
-                                    dtype=torch.uint8, device=self.device)
-        self._progress = torch.zeros(sps.height_mbs, dtype=torch.int32,
-                                     device=self.device)
-        self._dstack_key = key
+        self._flush_group()       # the old stacks' work runs first
+        self._return_stacks()
+        pool = GR.STACK_POOL
+        self._stacks = pool.lease(self.device, sps.width, sps.height, R)
+        self._give_back = weakref.finalize(self, pool.release, self._stacks)
+        self._give_back.atexit = False
         for p in self.dpb.buffer:
             if p.frame is not None and not p.non_existing \
                     and p is not self.dpb.current:
                 self._upload_frame_slot(p.slot, p.frame)
+
+    def _return_stacks(self) -> None:
+        """Give the leased stacks back to the pool (none leased: nothing
+        to do). Their frames stay valid: no frame is a view of them."""
+        if self._give_back is not None:
+            self._give_back()
+        self._stacks = self._give_back = None
 
     def reference_stacks(self):
         """For a recon_strategy on the torch path: (stack_y [R, H, W],
@@ -822,7 +862,9 @@ class Decoder:
         writes the slot only for the pictures it reconstructs itself."""
         self._flush_group()
         self._ensure_stacks()
-        return self._stack_y, self._stack_c, self.dpb.current.slot
+        stacks = self._stacks
+        stacks.note_stream()
+        return stacks.stack_y, stacks.stack_c, self.dpb.current.slot
 
     def _reconstruct_torch(self, pic: PictureData) -> TorchFrame:
         """Pack and upload as `pack` says, reconstruct on the device,
@@ -832,7 +874,8 @@ class Decoder:
         sps, pps = self.sps, self.pps
         w, h = sps.width_mbs, sps.height_mbs
         self._ensure_stacks()
-        stacks = (self._stack_y, self._stack_c, self.dpb.current.slot)
+        own = self._stacks
+        slot = self.dpb.current.slot
         ci, co = pps.constrained_intra_pred, pps.chroma_qp_index_offset
         if self.pack == "v2":
             lay = PK.get_packed_layout_v2(w, h)
@@ -846,13 +889,12 @@ class Decoder:
                     return self._queue_group(buf, bk, lay, ci, co)
                 if self.async_pump:
                     return self._pump_picture(buf, bk, lay, ci, co)
-                return decode_picture_packed2(
-                    torch.from_numpy(buf).to(self.device), *stacks, lay, bk,
-                    constrained_intra=ci, chroma_qp_offset=co,
-                    workspace=self._progress)
+                return self._picture_step(own, buf, slot, lay, bk, ci, co)
         # a v1 or unpacked picture writes the stacks after the pump's jobs
         # and the pending group, on this thread
         self._flush_group()
+        own.note_stream()
+        stacks = (own.stack_y, own.stack_c, slot)
         if self.pack != "none":
             lay = PK.get_packed_layout(w, h)
             if self._pack_scratch is None or \
@@ -862,11 +904,11 @@ class Decoder:
             return decode_picture_packed(
                 torch.from_numpy(buf).to(self.device), *stacks, lay, kb,
                 constrained_intra=ci, chroma_qp_offset=co,
-                workspace=self._progress)
+                workspace=own.progress)
         arrs = tables_from_numpy(host_picture_arrays(pic, co, ci),
                                  self.device)
         return decode_arrays_into_slot(arrs, *stacks, w, h, co,
-                                       workspace=self._progress)
+                                       workspace=own.progress)
 
     def _queue_group(self, buf: np.ndarray, bk: tuple,
                      lay: PK.PackedLayoutV2, ci: bool, co: int
@@ -953,10 +995,10 @@ class Decoder:
         """Restore a save_state() snapshot, also one taken by the JAX
         package's decoder: parameter sets and POC/AU state are adopted
         into this package's classes, planes become this backend's frames,
-        and the device stacks are rebuilt from them when the next picture
-        starts."""
+        and the device stacks are leased again and rebuilt from them when
+        the next picture starts."""
         self._flush_group()     # frames handed out keep their pictures
-        self.group_graphs.clear()
+        self._return_stacks()
         self.sps_store = {k: _adopt(Sps, v)
                           for k, v in st["sps_store"].items()}
         self.pps_store = {k: _adopt(Pps, v)
@@ -972,7 +1014,6 @@ class Decoder:
         self.headers_ready = st["headers_ready"]
         self.outputs = []
         self.pic = self.pic_header = None
-        self._dstack_key = None       # device stacks rebuilt on demand
         sd = st["dpb"]
         if sd is None:
             self.dpb = None

@@ -15,7 +15,9 @@ between passes), each printing one JSON line as soon as it ends:
             parallel_slices=8) with the dispatch pump on (the default on
             the card) and off, then the committed x264 1080p fixture off
             and on; frames stay on the card, one synchronize at the end;
-            frames/s median, min, max over the warm passes, taken in turns
+            frames/s median, min, max over the warm passes, taken in turns;
+            each decode's per-picture steps by route (eager, captured,
+            replayed: core/graphs.py), first and last pass
   batch     parallel.streams.decode_streams_lockstep over B streams beside
             B sequential single-stream decodes of the same bytes: aggregate
             frames/s, rounds, batch sizes, launches a round
@@ -28,7 +30,8 @@ between passes), each printing one JSON line as soon as it ends:
             parse-only pass and the rest
   stages    every picture of the realistic and the dense stream through
             each layer in turn, called from here: parse, pack, upload, step
-            (host enqueue; device ms behind a held stream), fetch; a table
+            (host enqueue; device ms behind a held stream), the same step
+            as a graph replay of its key (host ms), fetch; a table
             of median and max ms a frame by layer beside e2e's ms a frame,
             and the card's busy share over one warm pass (torch.profiler)
   fetch     the first pictures of the realistic stream with every frame's
@@ -260,6 +263,7 @@ class Bench:
         self.streams = streams
         self.x264 = x264
         self.deadline = float("inf")
+        self.routes = None     # the last decode's steps by route
 
     # -- clocks ---------------------------------------------------------
     def sync(self) -> None:
@@ -303,7 +307,8 @@ class Bench:
     # -- decoding -------------------------------------------------------
     def decode(self, data: bytes, **kw) -> Tuple[list, float]:
         """(frames, seconds) of one decode: frames stay on the device, the
-        clock stops after one synchronize."""
+        clock stops after one synchronize. Keeps its per-picture steps by
+        route in ``routes``."""
         from ..core.decoder import Decoder
         dec = Decoder(device=self.dev, parallel_slices=SLICE_THREADS, **kw)
         try:
@@ -312,6 +317,8 @@ class Bench:
             outs = dec.decode_annexb(data)
             self.sync()
             sec = time.perf_counter() - t0
+            graphs = dec.group_graphs
+            self.routes = None if graphs is None else dict(graphs.counts)
         finally:
             dec.close()
         return [o.frame for o in outs], sec
@@ -321,7 +328,8 @@ class Bench:
         before = launch_counts()
         frames, _ = self.decode(data, **kw)
         check_md5s(md5s(frames), want, what)
-        return {"md5_ok": True, "launches": _since(before)}
+        return {"md5_ok": True, "launches": _since(before),
+                "steps_first_pass": self.routes}
 
     def turns(self, runs: Dict[str, Callable[[], float]]
               ) -> Dict[str, List[float]]:
@@ -388,11 +396,17 @@ def _pump_pair(b: Bench, key: str, n: int, order: Tuple[bool, bool]) -> dict:
     for pump in order:
         rec["pump_on" if pump else "pump_off"] = b.checked(
             data, want, f"{key} async_pump={pump}", async_pump=pump)
-    secs = b.turns({pump: (lambda pump=pump:
-                           b.decode(data, async_pump=pump)[1])
-                    for pump in order})
+    routes = {}
+
+    def timed(pump):
+        sec = b.decode(data, async_pump=pump)[1]
+        routes[pump] = b.routes
+        return sec
+
+    secs = b.turns({pump: (lambda pump=pump: timed(pump)) for pump in order})
     for pump in order:
-        rec["pump_on" if pump else "pump_off"].update(b.rates(n, secs[pump]))
+        rec["pump_on" if pump else "pump_off"].update(
+            b.rates(n, secs[pump]), steps_last_pass=routes[pump])
     return rec
 
 
@@ -455,7 +469,8 @@ def _one_stream(b: Bench, key: str, n: int) -> dict:
     data, want = b.stream(key, n)
     rec = {"stream": key, "pictures": n, "stream_bytes": len(data)}
     rec.update(b.checked(data, want, key))
-    rec.update(b.rates(n, b.turns({"e2e": lambda: b.decode(data)[1]})["e2e"]))
+    rec.update(b.rates(n, b.turns({"e2e": lambda: b.decode(data)[1]})["e2e"]),
+               steps_last_pass=b.routes)
     return rec
 
 
@@ -550,16 +565,22 @@ def _stage_table(b: Bench, key: str, n: int) -> dict:
     the decoder parses (recon_strategy), then this file packs, uploads,
     steps and fetches it. The strategy's picture goes into stacks of its
     own, so the next picture predicts from it; its frame is SKIP_RECON to
-    the decoder."""
+    the decoder. On the card the step runs eagerly (the host enqueue of
+    its ops) and then once more as the CUDA graph of its key (core/
+    graphs.py; captured untimed where the key has none yet), whose replay
+    writes the same picture into the same slot and must give the same
+    bytes: the replay's host ms is the row beside the enqueue's."""
     from ..core import decoder as DEC
     from ..core import packed as PK
+    from ..core.graphs import GroupGraphs
     from ..core.recon import decode_picture_packed2
 
     data, want = b.stream(key, n)
     lay_ms = {k: [] for k in ("parse", "pack", "upload", "step_host",
-                              "step_device", "fetch")}
+                              "step_device", "step_replay_host", "fetch")}
     got, upload_bytes, unheld = {}, [], [0]
     st = {"t": 0.0, "scratch": None, "stacks": None, "hold": 30.0}
+    graphs = GroupGraphs()
 
     def layers(dec, pic):
         t_in = time.perf_counter()
@@ -596,6 +617,9 @@ def _stage_table(b: Bench, key: str, n: int) -> dict:
             frame, host_ms, dev_ms = b.held_ms(step, st["hold"])
             st["hold"] = max(30.0, 4 * host_ms)
             unheld[0] += dev_ms is None
+            lay_ms["step_replay_host"].append(
+                _replay_host_ms(b, graphs, buf, dec.dpb.current.slot,
+                                st["stacks"], lay, bk, pps, frame))
         else:
             t0 = time.perf_counter()
             frame = step()
@@ -649,6 +673,9 @@ def _stage_table(b: Bench, key: str, n: int) -> dict:
     return {"stream": key, "pictures": n, "md5_ok": True,
             "launches": launches, "layers": table,
             "upload_bytes_median": _median(upload_bytes),
+            "step_graphs": len(graphs.graphs()),
+            "step_capture_parts_ms": [g.capture_parts
+                                      for g in graphs.graphs()],
             "device_not_held": unheld[0],
             "sum_no_fetch_ms": serial,
             "sum_ms": None if serial is None else serial + med["fetch"],
@@ -656,6 +683,26 @@ def _stage_table(b: Bench, key: str, n: int) -> dict:
             "overlap_ms": (None if serial is None
                            else serial - e2e["ms_per_frame_median"]),
             "profiled_pass": busy}
+
+
+def _replay_host_ms(b: Bench, graphs, buf, slot: int, stacks, lay, bk,
+                    pps, frame) -> float:
+    """The picture's step once more, as the graph of its key: captured
+    first (untimed) if the key has none; then one replay, from an idle
+    card, timed on the host clock. The replay rewrites the picture's slot
+    with the same planes, and its YUV must equal the eager step's."""
+    args = (buf, slot, *stacks, lay, bk, pps.constrained_intra_pred,
+            pps.chroma_qp_index_offset)
+    if graphs.step(*args) is None:       # the key's first picture
+        graphs.step(*args)               # captured, and replayed once
+    b.sync()
+    t0 = time.perf_counter()
+    yuv = graphs.step(*args)
+    ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(yuv, frame.yuv):
+        raise AssertionError("the step's graph replay differs from its "
+                             "eager step")
+    return ms
 
 
 def section_stages(b: Bench) -> dict:
@@ -808,6 +855,7 @@ def run(sections=SECTIONS, plan: str = "full", device: str = "cuda",
     """Run the sections in turn, `emit` each one's JSON line as it ends;
     returns (exit code, the last line's object). Exit code 0 only if
     every section held its md5s and ran to its end."""
+    from ..core import graphs as GR
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench --device cuda: CUDA is not available")
@@ -846,6 +894,8 @@ def run(sections=SECTIONS, plan: str = "full", device: str = "cuda",
         with contextlib.suppress(RuntimeError):
             b.sync()             # a failed section's error shows only once
         rec["section_launches"] = _since(before)
+        # the reference stacks and graphs the process holds after it
+        rec["stack_pool"] = GR.STACK_POOL.stats() if b.cuda else None
         rec["section_s"] = b.t(time.perf_counter() - start)
         emit(json.dumps(rec))
         lines[name] = rec

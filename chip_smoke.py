@@ -38,9 +38,13 @@ failure is caught):
      hand-off floors at that size
   6. the per-picture step on the P picture: host enqueue, device span,
      device kernels per step; beside it the same step as a CUDA graph of
-     one picture (core.graphs.GroupGraph): byte-equal to the eager step,
-     capture + instantiate ms, the bytes the capture added to the pool,
-     host ms per replay and device span
+     one picture, captured as the default path captures it
+     (core.graphs.GroupGraph.record_and_replay after the eager warm-up):
+     byte-equal to the eager step, the capture's ms by part (the device
+     synchronize, gc.collect and empty_cache that torch.cuda.graph does on
+     entry, timed apart and no longer done; the recorded enqueue;
+     instantiate), the bytes the capture added to the pool, host ms per
+     replay and device span
   7. end to end: the port's Decoder(device="cuda", parallel_slices=8)
      over the stream, every frame byte-equal to the port's NumPy path
      (Decoder(recon="numpy")); every kernel must have launched on that
@@ -65,13 +69,14 @@ failure is caught):
  10. frame groups at 1080p: phase 9's four streams concatenated into one
      10-picture stream (IDRs at 0, 4, 6, 8) through Decoder(device="cuda",
      parallel_slices=8, group_frames=G) for G = 2 and 4 (groups of 4, 4
-     and 2), every frame byte-equal to the eager Decoder(device="cuda");
+     and 2), every frame byte-equal to the default Decoder(device="cuda")
+     (one graph per picture key);
      K1, K2 and K3 once per picture, counted through the graphs' replays;
      once more with prefetch_outputs=True, the same bytes; graphs
      captured, capture ms and pool bytes per key, host ms per replayed
      group, and frames/s (median of warm passes, one decoder per setting
-     kept across passes, so that its graphs are reused) eager beside G = 2
-     and G = 4
+     kept across passes, so that its graphs are reused) default beside
+     G = 2 and G = 4
  11. band sharding at 1080p (parallel.slices) on a mesh of the card four
      times, 17 MB rows a band: (a) a 4-slice idc-0 stream
      (tools.streams.realistic_stream(120, 68, n_frames=4, n_slices=4):
@@ -119,6 +124,17 @@ failure is caught):
      run to its end, every picture equal to the committed md5s
      (tools/data/bench_md5.json, made by the JAX package's NumPy decoder),
      and K1, K2 and K3 launched in it.
+ 14. the default path's graphs (core/graphs.py): with the stack pool
+     emptied, phase 3's stream through two default decoders in turn
+     (Decoder(device="cuda", parallel_slices=8), the pump on), every frame
+     byte-equal to the port's NumPy path (phase 7's), K1, K2 and K3 once a
+     picture, replays counted; each picture's route (eager: a key's first
+     picture for its decoder; captured at a key's second; replayed), the
+     first decoder capturing at least one key and the second none; the
+     keys of the stream, each capture's ms by part and pool bytes, host ms
+     of each replay against each eager enqueue (both timed on the pump's
+     worker), the pool's sets and bytes; beside them phase 7's launches
+     per picture and phase 12 (d)'s launches per story run.
 The last lines of stdout: the scaling table (JSON), the kernels' JSON
 record, the nvidia-smi name/power-limit line, and {"ok": true,
 "device": ...}.
@@ -879,12 +895,18 @@ def step_phase(picture, device, reps: int = 20) -> dict:
 
 def graph_step(picture, device, reps: int, eager_host_ms: float,
                eager_dev_ms: float) -> dict:
-    """The same per-picture step as a CUDA graph of one picture
-    (core.graphs.GroupGraph: the eager warm-up, then the capture): a
-    replay from zero stacks byte-equal to the eager step from zero
-    stacks; capture + instantiate ms, the bytes the capture added to the
-    graph's pool; host ms per replay (upload from the pinned staging
-    buffer, replay, the copy of the output) and device span."""
+    """The same per-picture step as a CUDA graph of one picture, as the
+    default path captures it (core.graphs.GroupGraph.record_and_replay
+    after the eager step, the key's warm-up): the capture's replay from
+    zero stacks byte-equal to the eager step from zero stacks; the capture
+    cost by part: what torch.cuda.graph does on entry and the capture did
+    through PR 9 (synchronize after the warm-up, gc.collect, empty_cache;
+    timed here, done no more), then the recorded enqueue and instantiate;
+    the bytes the capture added to the graph's pool; host ms per replay
+    (upload from the pinned staging buffer, replay, the copy of the
+    output) and device span."""
+    import gc as gcmod
+
     import torch
 
     from broadway_tpu_torch.core.graphs import GroupGraph
@@ -902,14 +924,29 @@ def graph_step(picture, device, reps: int, eager_host_ms: float,
                                   *stacks(), 0, lay, bk, ci, co).tobytes()
     gy, gc = stacks()
     graph = GroupGraph(gy, gc, 1, buf.size, lay, bk, ci, co)
-    graph.capture(buf[None], [0], torch.cuda.Stream(device),
-                  torch.cuda.graph_pool_handle())
+    decode_picture_packed2(torch.from_numpy(buf).to(device), gy, gc, 0, lay,
+                           bk, ci, co)          # the key's eager warm-up
+    parts = {}
+    for part, fn in (("synchronize", torch.cuda.synchronize),
+                     ("gc_collect", gcmod.collect),
+                     ("empty_cache", torch.cuda.empty_cache)):
+        t0 = time.perf_counter()
+        fn()
+        parts[f"{part}_ms"] = 1e3 * (time.perf_counter() - t0)
+    gy.zero_()
+    gc.zero_()
+    got = graph.record_and_replay(buf[None], [0], torch.cuda.Stream(device),
+                                  torch.cuda.graph_pool_handle())[0]
+    parts.update(graph.capture_parts)
+    if bytes(got.cpu().numpy()) != want:
+        raise AssertionError("the graph of one picture differs from the "
+                             "eager step")
     gy.zero_()
     gc.zero_()
     got = graph.replay(buf[None], [0])[0]
     if bytes(got.cpu().numpy()) != want:
-        raise AssertionError("the graph of one picture differs from the "
-                             "eager step")
+        raise AssertionError("a replay of the graph of one picture differs "
+                             "from the eager step")
     host_ms, dev_ms = enqueue_and_span_ms(
         lambda: graph.replay(buf[None], [0]), reps)
     # one replay from an idle card: what submitting it costs the host
@@ -925,7 +962,9 @@ def graph_step(picture, device, reps: int, eager_host_ms: float,
     submit_ms = _median(submit)
     n_ops, busy_ms = device_ops(lambda: graph.replay(buf[None], [0]))
     log(f"  the same step as a CUDA graph of one picture: byte-equal to the "
-        f"eager step; capture + instantiate {graph.capture_ms:.1f} ms, "
+        f"eager step; capture + instantiate {graph.capture_ms:.3f} ms by "
+        f"part {parts} (the first three: torch.cuda.graph's entry and PR "
+        f"9's capture, no longer done), "
         f"{graph.pool_bytes} bytes added to the graph pool; one replay from "
         f"an idle card costs the host {submit_ms:.3f} ms (median of {reps}); "
         f"back to back host {host_ms:.3f} ms, device span {dev_ms:.3f} ms "
@@ -935,6 +974,7 @@ def graph_step(picture, device, reps: int, eager_host_ms: float,
         "time in sum "
         + (f"{busy_ms:.3f} ms" if busy_ms is not None else "not measured"))
     return {"graph_capture_ms": graph.capture_ms,
+            "graph_capture_parts_ms": parts,
             "graph_pool_bytes": graph.pool_bytes,
             "graph_submit_host_ms": submit_ms,
             "graph_host_ms": host_ms, "graph_device_span_ms": dev_ms,
@@ -1025,6 +1065,106 @@ def e2e_phase(data: bytes, device):
     log(f"  median of {WARM_PASSES} warm passes: {fps:.2f} frames/s "
         f"(host probe: NumPy path {numpy_s:.1f} s for the same frames)")
     return counts, per_pic, fps, want, numpy_s
+
+
+def step_graph_phase(data: bytes, want, pictures, device) -> dict:
+    """Phase 3's stream twice, through two default decoders in turn, on an
+    emptied stack pool: every frame equal to the NumPy path's (`want`),
+    K1 / K2 / K3 once a picture, each picture's route and host ms (the
+    eager step's enqueue, a graph's capture + replay, a replay), and what
+    the pool holds after."""
+    import torch
+
+    from broadway_tpu_torch.core import decoder as DEC
+    from broadway_tpu_torch.core import graphs as GR
+    from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
+
+    keys = len({(p[1], p[3], p[4]) for p in pictures})
+    GR.STACK_POOL.clear()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    eager, step = DEC.decode_picture_packed2, GR.GroupGraphs.step
+    host = {"eager": [], "captured": [], "replayed": []}
+
+    def eager_timed(*a, **k):
+        t0 = time.perf_counter()
+        r = eager(*a, **k)
+        host["eager"].append(1e3 * (time.perf_counter() - t0))
+        return r
+
+    def step_timed(self, *a, **k):
+        before = self.counts["captured"]
+        t0 = time.perf_counter()
+        r = step(self, *a, **k)
+        if r is not None:
+            route = "captured" if self.counts["captured"] > before \
+                else "replayed"
+            host[route].append(1e3 * (time.perf_counter() - t0))
+        return r
+
+    DEC.decode_picture_packed2, GR.GroupGraphs.step = eager_timed, step_timed
+    runs = []
+    try:
+        for k in range(2):
+            for v in host.values():
+                v.clear()
+            reset_launch_counts()
+            dec = DEC.Decoder(device=device, parallel_slices=8)
+            try:
+                got = [o.frame.tobytes() for o in dec.decode_annexb(data)]
+                torch.cuda.synchronize()
+                routes = dict(dec.group_graphs.counts)
+                graphs = dec.group_graphs.graphs()
+            finally:
+                dec.close()
+            counts = launch_counts()
+            counts_dev = {"K2_intra": KW.device_launches(KW.INTRA),
+                          "K3_deblock": KW.device_launches(KW.DEBLOCK)}
+            if got != list(want):
+                i = next((i for i, (a, b) in enumerate(zip(got, want))
+                          if a != b), min(len(got), len(want)))
+                raise AssertionError(f"default decoder {k}: {len(got)} "
+                                     f"frames; picture {i} differs from the "
+                                     "NumPy path")
+            _require_one_launch_per_picture(f"default decoder {k}", counts,
+                                            len(want))
+            _require_one_launch_per_picture(f"default decoder {k} (device)",
+                                            counts_dev, len(want))
+            runs.append({"steps": routes, "launches": counts,
+                         "device_launches": counts_dev,
+                         "host_ms": {r: list(v) for r, v in host.items()},
+                         "graphs": [{"capture_ms": g.capture_ms,
+                                     "capture_parts_ms": g.capture_parts,
+                                     "pool_bytes": g.pool_bytes,
+                                     "replays": g.replays}
+                                    for g in graphs]})
+            log(f"  default decoder {k}: {len(got)} frames byte-equal to the "
+                f"NumPy path; steps by route {routes}; wrapper launches "
+                f"{counts}, device {counts_dev}; host ms: eager enqueue "
+                f"{[round(x, 3) for x in host['eager']]}, capture + replay "
+                f"{[round(x, 3) for x in host['captured']]}, replay "
+                f"{[round(x, 3) for x in host['replayed']]}")
+    finally:
+        DEC.decode_picture_packed2, GR.GroupGraphs.step = eager, step
+    first, second = runs[0]["steps"], runs[1]["steps"]
+    if first["captured"] < 1 or second["captured"] != 0 or \
+            second["replayed"] < 1 or \
+            second["eager"] + second["replayed"] != len(want):
+        raise AssertionError(f"routes of the two decoders: {first}, {second}:"
+                             " the first must capture, the second replay "
+                             "and capture nothing")
+    torch.cuda.synchronize()
+    pool = GR.STACK_POOL.stats()
+    out = {"pictures": len(want), "keys": keys, "runs": runs, "pool": pool,
+           "reserved_bytes_added": torch.cuda.memory_reserved() - reserved}
+    for g in runs[0]["graphs"]:
+        log(f"  a capture: {g['capture_ms']:.3f} ms, by part "
+            f"{g['capture_parts_ms']}; {g['pool_bytes']} bytes added to the "
+            "graph pool")
+    log(f"  {keys} keys in {len(want)} pictures; the pool after both: "
+        f"{pool}; {out['reserved_bytes_added']} bytes reserved by the "
+        "allocator since the phase began")
+    return out
 
 
 def rgba_int_numpy(frame: bytes, w: int, h: int):
@@ -1258,12 +1398,13 @@ def pack_modes_phase(data: bytes, device) -> None:
 def group_phase(datas, device, numpy_s: float, passes: int = 3) -> dict:
     """Frame groups at 1080p: the lockstep streams back to back as one
     10-picture stream (IDRs at 0, 4, 6, 8), decoded with group_frames = 2
-    and 4, each frame byte-equal to the eager decode; K1 / K2 / K3 once per
+    and 4, each frame byte-equal to the default decode; K1 / K2 / K3 once per
     picture counted through the replays; the prefetch decode; graphs,
     capture ms, pool bytes, host ms per replayed group; frames/s of warm
     passes with one decoder per setting, kept across passes."""
     import torch
 
+    from broadway_tpu_torch.core import graphs as GR
     from broadway_tpu_torch.core.decoder import Decoder
     from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
 
@@ -1272,9 +1413,11 @@ def group_phase(datas, device, numpy_s: float, passes: int = 3) -> dict:
     n = len(want)
     if n != sum(k for _, k in LOCKSTEP_STREAMS):
         raise AssertionError(f"the concatenated stream gave {n} frames")
+    GR.STACK_POOL.clear()        # each decoder's graphs are its own
     decs = {0: Decoder(device=device, parallel_slices=8)}
     out = {"pictures": n, "groups": {}}
-    replay_ms = {}
+    replay_ms = {2: [], 4: []}
+    run = GR.GroupGraphs.run
     try:
         for G in (2, 4):
             dec = Decoder(device=device, parallel_slices=8, group_frames=G)
@@ -1289,11 +1432,12 @@ def group_phase(datas, device, numpy_s: float, passes: int = 3) -> dict:
                 k = next((k for k, (a, b) in enumerate(zip(got, want))
                           if a != b), min(len(got), len(want)))
                 raise AssertionError(f"group_frames={G}: {len(got)} frames, "
-                                     f"eager {n}; first difference at {k}")
+                                     f"default {n}; first difference at "
+                                     f"{k}")
             _require_one_launch_per_picture(f"group_frames={G}", counts, n)
             _require_one_launch_per_picture(f"group_frames={G} (device)",
                                             counts_dev, n)
-            graphs = dec.group_graphs.graphs()
+            graphs = [g for g in dec.group_graphs.graphs() if g.group > 1]
             replayed = sum(g.replays * g.group for g in graphs)
             out["groups"][G] = {
                 "launches": counts, "device_launches": counts_dev,
@@ -1302,26 +1446,28 @@ def group_phase(datas, device, numpy_s: float, passes: int = 3) -> dict:
                 "capture_ms": [g.capture_ms for g in graphs],
                 "graph_sizes": [g.group for g in graphs],
                 "pool_bytes": [g.pool_bytes for g in graphs]}
-            log(f"  group_frames={G}: {n} frames byte-equal to the eager "
+            log(f"  group_frames={G}: {n} frames byte-equal to the default "
                 f"decode; wrapper launches {counts}, device {counts_dev}; "
                 f"{len(graphs)} graphs of {[g.group for g in graphs]} "
                 f"pictures captured in "
                 f"{[round(g.capture_ms, 1) for g in graphs]} ms, adding "
                 f"{[g.pool_bytes for g in graphs]} bytes to the pool; "
                 f"{replayed} of {n} pictures ran in replays")
-            run = dec.group_graphs.run
-            replay_ms[G] = []
-
-            def timed(*a, _run=run, _dec=dec, _ms=replay_ms[G], **k):
-                before = len(_dec.group_graphs.graphs())
-                t0 = time.perf_counter()
-                r = _run(*a, **k)
-                if len(_dec.group_graphs.graphs()) == before:
-                    _ms.append(1e3 * (time.perf_counter() - t0))
-                return r
-
-            dec.group_graphs.run = timed
         out["launches"] = out["groups"][4]["launches"]
+        # host ms of each replayed group of the two group decoders from
+        # here on: their sets stay leased to them until the end
+        owner = {id(decs[G].group_graphs): G for G in (2, 4)}
+
+        def timed(self, *a, **k):
+            before = self.counts["captured"]
+            t0 = time.perf_counter()
+            r = run(self, *a, **k)
+            G = owner.get(id(self))
+            if G is not None and self.counts["captured"] == before:
+                replay_ms[G].append(1e3 * (time.perf_counter() - t0))
+            return r
+
+        GR.GroupGraphs.run = timed
 
         reset_launch_counts()
         pre = Decoder(device=device, parallel_slices=8, group_frames=4,
@@ -1336,7 +1482,7 @@ def group_phase(datas, device, numpy_s: float, passes: int = 3) -> dict:
         log(f"  group_frames=4, prefetch_outputs=True: {n} frames byte-equal")
 
         secs = {G: [] for G in decs}
-        decs[0].decode_annexb(data)           # the eager decoder's warm-up
+        decs[0].decode_annexb(data)      # the default decoder's warm-up
         for k in range(passes):
             for G, dec in decs.items():
                 torch.cuda.synchronize()
@@ -1345,15 +1491,16 @@ def group_phase(datas, device, numpy_s: float, passes: int = 3) -> dict:
                 torch.cuda.synchronize()
                 secs[G].append(time.perf_counter() - t0)
             log(f"  warm pass {k}: " + ", ".join(
-                f"{'eager' if G == 0 else f'G={G}'} {n / secs[G][-1]:.2f}"
+                f"{'default' if G == 0 else f'G={G}'} {n / secs[G][-1]:.2f}"
                 for G in decs) + " frames/s")
-        out["fps"] = {("eager" if G == 0 else f"G={G}"): n / _median(s)
+        out["fps"] = {("default" if G == 0 else f"G={G}"): n / _median(s)
                       for G, s in secs.items()}
         out["host_ms_per_replayed_group"] = {
             f"G={G}": _median(v) if v else None for G, v in replay_ms.items()}
         out["pictures_through_replays_in_warm_passes"] = {
             f"G={G}": sum(g.replays * g.group
-                          for g in decs[G].group_graphs.graphs())
+                          for g in decs[G].group_graphs.graphs()
+                          if g.group > 1)
             - out["groups"][G]["pictures_through_replays"] for G in (2, 4)}
         out["numpy_path_s"] = numpy_s
         log(f"  median of {passes} warm passes: " + ", ".join(
@@ -1364,6 +1511,7 @@ def group_phase(datas, device, numpy_s: float, passes: int = 3) -> dict:
             f"probe: NumPy path "
             f"{numpy_s:.1f} s for stream 0's frames)")
     finally:
+        GR.GroupGraphs.run = run
         for dec in decs.values():
             dec.close()
     return out
@@ -2101,6 +2249,16 @@ def run_phases(torch, smi: str, pool) -> int:
 
     log("[13] the benchmark's short form: every section, md5s held")
     bench_res = bench_phase(device="cuda")
+
+    log("[14] the default path's graphs: two decoders in turn, the second "
+        "capturing nothing")
+    step_graphs = step_graph_phase(data, want_frames, pictures, "cuda")
+    step_graphs["phase7_device_launches_per_picture"] = per_pic
+    step_graphs["phase12_story_launches"] = [
+        run["launches"] for run in tools["story"]["runs"]]
+    log(f"    phase 7: device launches per picture {per_pic}; phase 12 "
+        f"(d): launches per story run "
+        f"{step_graphs['phase12_story_launches']}")
     check_no_jax()
     log("    neither jax nor broadway_tpu in sys.modules")
 
@@ -2192,7 +2350,8 @@ def run_phases(torch, smi: str, pool) -> int:
                                           if wave else None)})
     record = {"kernels": kernels, "handoff": probe,
               "big_handoff_floor_ms": big["handoff_floor_ms"],
-              "step": step, "lockstep": lockstep, "groups": groups,
+              "step": step, "step_graphs": step_graphs,
+              "lockstep": lockstep, "groups": groups,
               "bands": {k: v for k, v in bands.items() if k != "kernels"},
               "pump": {"x264": tools["x264"]["pump"],
                        "realistic": tools["realistic_pump"]},

@@ -667,17 +667,28 @@ def test_two_pumped_decoders_on_two_threads(cuda):
 def test_pump_runs_on_the_feed_threads_card_and_stream(cuda, monkeypatch):
     """The pump's worker runs each step under the decoder's card and on
     the stream that was current on the feed thread when the picture was
-    queued (both are per thread in CUDA); a prefetch the worker starts
+    queued (both are per thread in CUDA), the eager step of a key's first
+    picture and the graph replays alike; a prefetch the worker starts
     waits on that stream."""
     from broadway_tpu_torch.core import decoder as DEC
-    seen, step = [], DEC.decode_picture_packed2
+    from broadway_tpu_torch.core import graphs as GR
+    seen, replays = [], []
+    step, launch = DEC.Decoder._picture_step, GR.GroupGraph._launch
+
+    def where():
+        return (torch.cuda.current_device(),
+                torch.cuda.current_stream().cuda_stream)
 
     def spy(*a, **k):
-        seen.append((torch.cuda.current_device(),
-                     torch.cuda.current_stream().cuda_stream))
+        seen.append(where())
         return step(*a, **k)
 
-    monkeypatch.setattr(DEC, "decode_picture_packed2", spy)
+    def launch_spy(*a, **k):
+        replays.append(where())
+        return launch(*a, **k)
+
+    monkeypatch.setattr(DEC.Decoder, "_picture_step", spy)
+    monkeypatch.setattr(GR.GroupGraph, "_launch", launch_spy)
     data = STREAMS["realistic"]()
     want = [o.frame.tobytes() for o in
             Decoder(device="cpu", recon="numpy").decode_annexb(data)]
@@ -688,3 +699,5 @@ def test_pump_runs_on_the_feed_threads_card_and_stream(cuda, monkeypatch):
         dec.close()
     assert got == want
     assert seen == [(cuda.index or 0, side.cuda_stream)] * len(want)
+    assert replays and \
+        replays == [(cuda.index or 0, side.cuda_stream)] * len(replays)
