@@ -18,8 +18,9 @@ imports nothing of that package:
            plain versions); recon="numpy" runs core/recon_cpu.py on the
            host instead, the reference inside the port
   Stage C  frame state          -> DPB / POC / output ordering (core/)
-On a card the per-picture step of a v2 picture is one CUDA graph per key,
-as it is one jit call per static key in the JAX package, and a frame
+On a card the per-picture step of a picture is one CUDA graph per key
+(a v2 buffer, a v1 buffer, or the unpacked arrays), as it is one jit
+call per static key in the JAX package, and a frame
 group (``group_frames=G``) is one graph of G pictures (core/graphs.py);
 group frames are lazy. The graphs are captured on reference stacks leased
 from a process-wide pool, so they outlive a decoder as the jit cache
@@ -59,11 +60,9 @@ from .conceal import conceal_picture, mark_slice_corrupted
 from .dpb import Dpb, DpbPicture
 from .graphs import GroupGraphs, StackSet
 from .poc import PocState, decode_poc
-from .recon import (LazyTorchFrame, TorchFrame, decode_arrays_into_slot,
-                    decode_picture_packed, decode_picture_packed2,
+from .recon import (LazyTorchFrame, TorchFrame, decode_picture_packed2,
                     host_picture_arrays, update_stack_slot)
 from .recon_cpu import Frame, reconstruct_picture
-from .state import tables_from_numpy
 
 
 @dataclasses.dataclass
@@ -232,6 +231,11 @@ class Decoder:
         # dropped without close()
         self._stacks: Optional[StackSet] = None
         self._give_back = None
+        # the pool's tag for the sets this decoder leases: only decoders
+        # with the same tag share sets, and with them the graphs of their
+        # keys (a recon_strategy's ``stack_affinity``, e.g. the band
+        # slicer's; each of parallel/slices.py's lockstep streams its own)
+        self.stack_affinity = getattr(recon_strategy, "stack_affinity", None)
         self.pack = pack
         self._pack2_scratch = None
         self._pack_scratch = None
@@ -671,16 +675,36 @@ class Decoder:
         picture); a key's first picture there, and every picture on the
         CPU, runs the eager step."""
         stacks.note_stream()
-        if not GR.runs_eagerly(stacks.device):
-            yuv = stacks.graphs.step(buf, slot, stacks.stack_y,
-                                     stacks.stack_c, lay, bk, ci, co)
-            if yuv is not None:
-                return TorchFrame(yuv, 16 * lay.w, 16 * lay.h)
-        stacks.graphs.counts["eager"] += 1
-        return decode_picture_packed2(
-            torch.from_numpy(buf).to(self.device), stacks.stack_y,
-            stacks.stack_c, slot, lay, bk, ci, co,
-            workspace=stacks.progress)
+        return GR.graph_or_eager(
+            stacks.graphs, stacks.device, lay.w, lay.h,
+            lambda: stacks.graphs.step(buf, slot, stacks.stack_y,
+                                       stacks.stack_c, lay, bk, ci, co),
+            lambda: decode_picture_packed2(
+                torch.from_numpy(buf).to(self.device), stacks.stack_y,
+                stacks.stack_c, slot, lay, bk, ci, co,
+                workspace=stacks.progress))
+
+    def _v1_step(self, stacks: StackSet, buf: np.ndarray, slot: int,
+                 lay: PK.PackedLayout, kb: int, ci: bool, co: int
+                 ) -> TorchFrame:
+        """The per-picture step of one v1 picture (buf u8 [size] on the
+        host) under ``_picture_step``'s policy: on a card the graph of its
+        key (layout, kb, ci, co, stacks); the same body eagerly for a
+        key's first picture there and on the CPU (``graphs.v1_step``)."""
+        stacks.note_stream()
+        return GR.v1_step(stacks, buf, slot, lay, kb, ci, co)
+
+    def _arrays_step(self, stacks: StackSet, arrs: Dict[str, np.ndarray],
+                     slot: int, co: int) -> TorchFrame:
+        """The per-picture step of one picture's unpacked arrays
+        (``host_picture_arrays``) under ``_picture_step``'s policy: on a
+        card the graph of its key (the arrays' layout, their whole_conceal
+        flag, the geometry, co, stacks), whose input is the arrays
+        flattened into one buffer; the same body eagerly for a key's first
+        picture there and on the CPU (``graphs.unpacked_step``)."""
+        stacks.note_stream()
+        return GR.unpacked_step(stacks, arrs, slot, stacks.stack_y,
+                                stacks.stack_c, co)
 
     def _pump_picture(self, buf: np.ndarray, bk: tuple,
                       lay: PK.PackedLayoutV2, ci: bool, co: int
@@ -838,7 +862,8 @@ class Decoder:
         self._flush_group()       # the old stacks' work runs first
         self._return_stacks()
         pool = GR.STACK_POOL
-        self._stacks = pool.lease(self.device, sps.width, sps.height, R)
+        self._stacks = pool.lease(self.device, sps.width, sps.height, R,
+                                  affinity=self.stack_affinity)
         self._give_back = weakref.finalize(self, pool.release, self._stacks)
         self._give_back.atexit = False
         for p in self.dpb.buffer:
@@ -893,22 +918,15 @@ class Decoder:
         # a v1 or unpacked picture writes the stacks after the pump's jobs
         # and the pending group, on this thread
         self._flush_group()
-        own.note_stream()
-        stacks = (own.stack_y, own.stack_c, slot)
         if self.pack != "none":
             lay = PK.get_packed_layout(w, h)
             if self._pack_scratch is None or \
                     self._pack_scratch.lay is not lay:
                 self._pack_scratch = PK.PackScratch(lay)
             buf, kb = PK.pack_picture(pic, lay, self._pack_scratch)
-            return decode_picture_packed(
-                torch.from_numpy(buf).to(self.device), *stacks, lay, kb,
-                constrained_intra=ci, chroma_qp_offset=co,
-                workspace=own.progress)
-        arrs = tables_from_numpy(host_picture_arrays(pic, co, ci),
-                                 self.device)
-        return decode_arrays_into_slot(arrs, *stacks, w, h, co,
-                                       workspace=own.progress)
+            return self._v1_step(own, buf, slot, lay, kb, ci, co)
+        return self._arrays_step(own, host_picture_arrays(pic, co, ci), slot,
+                                 co)
 
     def _queue_group(self, buf: np.ndarray, bk: tuple,
                      lay: PK.PackedLayoutV2, ci: bool, co: int

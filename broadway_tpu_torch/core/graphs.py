@@ -1,19 +1,23 @@
-"""CUDA graphs of the per-picture, frame-group and lockstep-round steps,
-and the process-wide pool of reference-stack sets that they are captured
-on.
+"""CUDA graphs of the per-picture, frame-group, lockstep-round and band
+steps, and the process-wide pool of reference-stack sets that they are
+captured on.
 
 The JAX package runs a picture's whole device step as one jit call
-(``recon_tpu.decode_picture_packed2``), a frame group as another
-(``decode_pictures_packed_group``) and a lockstep round of B streams as a
-third (``decode_pictures_packed_batch``): one compiled executable per set
-of static arguments, in a cache that lives as long as the process. The
-counterpart here is one CUDA graph per key, captured from
-``core.recon.decode_pictures_packed_group`` (with G = 1 for one picture:
-the slot is an input on the card, as the jit's slot is a traced
-argument) or from ``core.recon.decode_pictures_packed_round`` (a round:
-its table of stack bases and destination planes is the input on the
-card, so the round's member streams are not in its key), and replayed
-for every later picture, group or round of that key: the ~600 x G device
+(``recon_tpu.decode_picture_packed2``; ``decode_picture_packed`` for a v1
+buffer, ``decode_picture`` for the unpacked arrays), a frame group as
+another (``decode_pictures_packed_group``), a lockstep round of B streams
+as a third (``decode_pictures_packed_batch``) and a band-sharded picture
+as a fourth (``parallel/slices.py``'s ``jax.jit(shard_map(...))``): one
+compiled executable per set of static arguments, in a cache that lives
+as long as the process. The counterpart here is one CUDA graph per key,
+captured from ``core.recon.decode_pictures_packed_group`` (with G = 1 for
+one picture: the slot is an input on the card, as the jit's slot is a
+traced argument), from ``core.recon.decode_pictures_packed_round`` (a
+round: its table of stack bases and destination planes is the input on
+the card, so the round's member streams are not in its key) or from a
+one-picture body of another form (``PictureGraph``: the v1 and unpacked
+steps, and the band step of a one-card mesh), and replayed for every
+later picture, group or round of that key: the ~600 x G device
 operations go to the card in one launch instead of being enqueued op by
 op from Python.
 
@@ -30,13 +34,15 @@ time. The next holder of the same key gets it back zeroed, graphs and
 all.
 
 When a key is captured:
-- one picture (``GroupGraphs.step``) or a lockstep round
+- one picture (``GroupGraphs.step``; ``picture``, through
+  ``picture_step``, for the other forms) or a lockstep round
   (``GroupGraphs.round``): the first picture or round of a key that the
   set's current owner meets runs the eager step (the caller's
-  ``decode_picture_packed2`` or ``decode_pictures_packed_batch``), which
-  is its real decode and the warm-up; the key is captured at its second
-  picture or round and replayed from then on, so a key met once never
-  pays a capture;
+  ``decode_picture_packed2`` or ``decode_pictures_packed_batch``; for
+  the other forms the graph's own body), which is its real decode and
+  the warm-up; the key is
+  captured at its second picture or round and replayed from then on, so
+  a key met once never pays a capture;
 - a frame group (``GroupGraphs.run``): its first group runs the step
   eagerly on the capture stream, for real (its frames are that group's
   output), then the step is captured.
@@ -58,6 +64,8 @@ plain versions.
 from __future__ import annotations
 
 import collections
+import contextlib
+import functools
 import threading
 import time
 import weakref
@@ -68,8 +76,11 @@ import torch
 
 from ..ops.gpu import _build
 from ..ops.gpu import wavefront_kernels as KW
-from .packed import PackedLayoutV2
-from .recon import decode_pictures_packed_group, decode_pictures_packed_round
+from .packed import PackedLayout, PackedLayoutV2, host_arrays_layout, \
+    pack_host_arrays
+from .recon import TorchFrame, decode_host_arrays_slots, \
+    decode_picture_packed_slots, decode_pictures_packed_group, \
+    decode_pictures_packed_round
 
 MAX_GRAPHS = 8          # graphs kept per stack set; the least recently used go
 MAX_SETS = 4            # free stack sets kept per key; the oldest go
@@ -85,12 +96,96 @@ def runs_eagerly(dev: torch.device) -> bool:
     return dev.type == "cpu"
 
 
+def graph_or_eager(graphs: "GroupGraphs", dev: torch.device, w_mbs: int,
+                   h_mbs: int, graph, eager):
+    """One step on `dev`, routed: on a card `graph()` (a ``GroupGraphs``
+    call: the YUV of one picture, u8 [bytes], or of a round, u8 [B,
+    bytes], from a replay or a capture; or None the first time the set's
+    owner meets the key); then, and on the CPU, `eager()` (the step run
+    eagerly: its ``TorchFrame``, or a round's list of them), counted as
+    the eager route in ``graphs.counts``."""
+    if not runs_eagerly(dev):
+        yuv = graph()
+        if yuv is not None:
+            W, H = 16 * w_mbs, 16 * h_mbs
+            if yuv.dim() == 1:
+                return TorchFrame(yuv, W, H)
+            return [TorchFrame(y, W, H) for y in yuv]
+    graphs.counts["eager"] += 1
+    return eager()
+
+
+def picture_step(graphs: "GroupGraphs", kind: str, args: tuple, body,
+                 buf: np.ndarray, slot: int, stack_y: torch.Tensor,
+                 stack_c: torch.Tensor, rows: int,
+                 workspace: torch.Tensor) -> TorchFrame:
+    """One picture's step in another form than v2 (``PictureGraph``: kind
+    "v1", "unpacked", "band" or "band_arrays"). body: (bufs u8 [1, size],
+    stack_y, stack_c, slots int64 [1], workspace=) -> the picture's YUV u8
+    [1, bytes], written into stack slot slots[0]; `args`, its static
+    arguments, bound (the graph's key holds them). buf: its input, u8
+    [size] on the host; slot: the stack slot it writes. On a card the
+    graph of its key (``GroupGraphs.picture``, K2/K3 counters of `rows`);
+    a key's first picture there, and every picture on the CPU, runs
+    `body` eagerly on the same inputs with `workspace` (at least `rows`
+    counters)."""
+    dev = stack_y.device
+    w_mbs, h_mbs = stack_y.shape[-1] // 16, stack_y.shape[-2] // 16
+    return graph_or_eager(
+        graphs, dev, w_mbs, h_mbs,
+        lambda: graphs.picture(kind, args, buf, slot, stack_y, stack_c,
+                               rows, body),
+        lambda: TorchFrame(body(
+            torch.from_numpy(buf[None]).to(dev), stack_y, stack_c,
+            torch.full((1,), slot, dtype=torch.int64, device=dev),
+            workspace=workspace)[0], 16 * w_mbs, 16 * h_mbs))
+
+
+def v1_step(s: "StackSet", buf: np.ndarray, slot: int, lay: PackedLayout,
+            kb: int, constrained_intra: bool, chroma_qp_offset: int
+            ) -> TorchFrame:
+    """The per-picture step of one v1 picture (buf u8 [size] on the host;
+    its bucket kb, a static argument of the JAX step, in the key) on the
+    set's stacks, under ``picture_step``'s routing."""
+    args = (lay, kb, constrained_intra, chroma_qp_offset)
+    body = functools.partial(decode_picture_packed_slots, lay=lay, kb=kb,
+                             constrained_intra=constrained_intra,
+                             chroma_qp_offset=chroma_qp_offset)
+    return picture_step(s.graphs, "v1", args, body, buf, slot, s.stack_y,
+                        s.stack_c, lay.h, s.progress)
+
+
+def unpacked_step(s: "StackSet", arrs: dict, slot: int,
+                  stack_y: torch.Tensor, stack_c: torch.Tensor,
+                  chroma_qp_offset: int) -> TorchFrame:
+    """The per-picture step of one picture's unpacked arrays
+    (``recon.host_picture_arrays``, NumPy) on the stacks stack_y / stack_c
+    of the set `s` (its own, or one stream's of a lockstep set), under
+    ``picture_step``'s routing. The step's input is the arrays flattened
+    into one buffer (``packed.pack_host_arrays``); its key holds their
+    layout (an array whose shape changed makes another key) and the
+    whole_conceal flag, which decides on the host whether K3 runs."""
+    w_mbs, h_mbs = stack_y.shape[-1] // 16, stack_y.shape[-2] // 16
+    layout = host_arrays_layout(arrs)
+    conceal = bool(arrs["whole_conceal"])
+    args = (layout, w_mbs, h_mbs, chroma_qp_offset, conceal)
+    body = functools.partial(decode_host_arrays_slots, layout=layout,
+                             w_mbs=w_mbs, h_mbs=h_mbs,
+                             chroma_qp_offset=chroma_qp_offset,
+                             whole_conceal=conceal)
+    return picture_step(s.graphs, "unpacked", args, body,
+                        pack_host_arrays(arrs, layout), slot, stack_y,
+                        stack_c, h_mbs, s.progress)
+
+
 class GroupGraph:
     """The group step for one key, captured once and replayed. It owns
     its static inputs (bufs u8 [G, size] and its index, the slots int64
     [G], on the card, fed from pinned staging buffers), K2/K3's progress
     counters (so that two graphs never share them), and its static output
     (yuv u8 [G, bytes], overwritten by every replay)."""
+
+    kind = "v2"       # what the graph steps: StackPool.stats reports it
 
     def __init__(self, ref_y: torch.Tensor, ref_c: torch.Tensor, group: int,
                  size: int, lay: PackedLayoutV2, bk: tuple,
@@ -236,6 +331,8 @@ class RoundGraph(GroupGraph):
     table carries the round's member streams and slots, so a round of
     other members with the same B and key replays this graph."""
 
+    kind = "round"
+
     def __init__(self, stack_y: torch.Tensor, stack_c: torch.Tensor,
                  batch: int, size: int, lay: PackedLayoutV2, bk: tuple,
                  constrained_intra: bool, chroma_qp_offset: int) -> None:
@@ -257,6 +354,30 @@ class RoundGraph(GroupGraph):
         return self.out.clone()
 
 
+class PictureGraph(GroupGraph):
+    """One picture's step in another form than the v2 buffer, captured
+    once and replayed: ``kind`` "v1" (a v1 buffer,
+    ``recon.decode_picture_packed_slots``), "unpacked" (the per-MB arrays
+    flattened into one buffer, ``recon.decode_host_arrays_slots``), "band"
+    or "band_arrays" (the band step of a one-card mesh,
+    ``parallel.slices.decode_band_picture`` / ``decode_band_arrays``).
+    Its static inputs are bufs u8 [1, size] and the slot int64 [1]; it has
+    K2/K3 counters of its own, int32 [rows] (h, or a band's hb + 1 rows
+    with the ghost row), and a static output yuv u8 [1, bytes]. `body`
+    (bufs, ref_y, ref_c, slots, workspace=) -> yuv is the step, its static
+    arguments bound: the caller's key holds them."""
+
+    def __init__(self, kind: str, ref_y: torch.Tensor, ref_c: torch.Tensor,
+                 size: int, rows: int, body) -> None:
+        self.kind = kind
+        self.body = body
+        self._setup(ref_y, ref_c, 1, size, (1,), torch.int64, rows, ())
+
+    def _step(self) -> torch.Tensor:
+        return self.body(self.bufs, self.ref_y, self.ref_c, self.index,
+                         workspace=self.workspace)
+
+
 class GroupGraphs:
     """The graphs of one stack set: at most MAX_GRAPHS of them, least
     recently used dropped first, captured on one side stream into one
@@ -264,8 +385,9 @@ class GroupGraphs:
     time, on its stream). ``met``: the one-picture and round keys that
     the current owner ran eagerly once; ``counts``: its steps by route,
     "eager" (a key's first picture or round, counted by the caller, which
-    runs it), "captured" and "replayed" (graphs of one picture, of a
-    group or of a round)."""
+    runs it), "captured" and "replayed" (graphs of one picture in any
+    form, of a group or of a round); ``counted`` adds a span's to a
+    caller's dict too."""
 
     def __init__(self) -> None:
         self._graphs = collections.OrderedDict()
@@ -283,16 +405,32 @@ class GroupGraphs:
     def graphs(self) -> List[GroupGraph]:
         return list(self._graphs.values())
 
+    @contextlib.contextmanager
+    def counted(self, into: dict):
+        """Add the routes that the steps run inside take (``counts``) to
+        `into` as well."""
+        before = dict(self.counts)
+        try:
+            yield
+        finally:
+            for route, n in self.counts.items():
+                into[route] += n - before[route]
+
     def clear(self) -> None:
         """Drop every graph."""
         self._graphs.clear()
 
     @staticmethod
-    def _key(ref_y, ref_c, G: int, lay, bk, constrained_intra,
-             chroma_qp_offset) -> tuple:
-        return (lay, bk, constrained_intra, chroma_qp_offset, G,
-                ref_y.device, ref_y.data_ptr(), tuple(ref_y.shape),
+    def _stacks_key(ref_y, ref_c) -> tuple:
+        """What a graph's key holds of the stacks it reads and writes."""
+        return (ref_y.device, ref_y.data_ptr(), tuple(ref_y.shape),
                 ref_c.data_ptr(), tuple(ref_c.shape))
+
+    @classmethod
+    def _key(cls, ref_y, ref_c, G: int, lay, bk, constrained_intra,
+             chroma_qp_offset) -> tuple:
+        return (lay, bk, constrained_intra, chroma_qp_offset, G) + \
+            cls._stacks_key(ref_y, ref_c)
 
     def _get(self, key) -> Optional[GroupGraph]:
         graph = self._graphs.get(key)
@@ -376,6 +514,27 @@ class GroupGraphs:
             ("round",) + self._key(stack_y, stack_c, B, *args), bufs, tab,
             lambda: RoundGraph(stack_y, stack_c, B, bufs.shape[1], *args))
 
+    def picture(self, kind: str, args: tuple, buf: np.ndarray, slot: int,
+                stack_y: torch.Tensor, stack_c: torch.Tensor, rows: int,
+                body) -> Optional[torch.Tensor]:
+        """One picture's step in another form than v2 (``PictureGraph``:
+        kind "v1", "unpacked", "band" or "band_arrays") on the card, as
+        the graph of its key: the kind, `args` (the step's static
+        arguments, which `body` has bound), the device and both stacks'
+        address and shape; replayed when captured; captured and replayed
+        when the current owner met the key before. buf: the step's input,
+        u8 [size] on the host; slot: the stack slot it writes (an input
+        of the graph, not of its key); rows: its K2/K3 counters. Returns
+        the picture's YUV u8 [bytes], or None the first time the owner
+        meets the key: the caller then runs the step eagerly, the key's
+        warm-up (``picture_step``)."""
+        key = (kind,) + tuple(args) + self._stacks_key(stack_y, stack_c)
+        yuv = self._second_time(
+            key, buf[None], [slot],
+            lambda: PictureGraph(kind, stack_y, stack_c, buf.size, rows,
+                                 body))
+        return None if yuv is None else yuv[0]
+
     def _second_time(self, key: tuple, bufs: np.ndarray, index, make):
         """The graph of `key` on these inputs: replayed; or made by
         `make`, captured and replayed when the owner met the key once
@@ -403,10 +562,12 @@ class StackSet:
     ``StackPool`` to one decoder or lockstep call at a time."""
 
     def __init__(self, device: torch.device, width: int, height: int,
-                 R: int, streams: Optional[int] = None) -> None:
+                 R: int, streams: Optional[int] = None,
+                 affinity=None) -> None:
         self.device = device
         self.geometry = (width, height, R)
         self.streams = streams
+        self.affinity = affinity   # the pool tag of every lease it serves
         lead = () if streams is None else (streams,)
         self.stack_y = torch.zeros(lead + (R, height, width),
                                    dtype=torch.uint8, device=device)
@@ -420,9 +581,9 @@ class StackSet:
 
     @property
     def key(self) -> tuple:
-        """What the pool files it under: (device, A or None, width,
-        height, R)."""
-        return (self.device, self.streams) + self.geometry
+        """What the pool files it under: (device, A or None, tag or None,
+        width, height, R)."""
+        return (self.device, self.streams, self.affinity) + self.geometry
 
     def note_stream(self) -> None:
         """Note the stream current on this thread as one that the owner's
@@ -437,12 +598,14 @@ class StackSet:
 
 
 class StackPool:
-    """Stack sets by (device, A, width, height, R), A None for a decoder's
-    set and the number of streams for a lockstep group's, so that neither
-    is ever handed the other's. ``lease`` hands out a set that nobody else
-    holds (a free one, zeroed after its previous owner's last work, or a
-    new one); ``release`` takes it back, and keeps at most MAX_SETS free
-    sets a key (the oldest go, with their graphs)."""
+    """Stack sets by (device, A, tag, width, height, R): A None for a
+    decoder's set and the number of streams for a lockstep group's, the
+    tag the holder's (``lease``'s affinity), so that no set is ever
+    handed across them. ``lease`` hands out a set that nobody else holds
+    (of its key, the free one returned last, zeroed after its previous
+    owner's last work, or a new one); ``release`` takes it back, and
+    keeps at most MAX_SETS free sets a key (the oldest go, with their
+    graphs)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -450,18 +613,22 @@ class StackPool:
         self._leased = weakref.WeakSet()
 
     def lease(self, device, width: int, height: int, R: int,
-              streams: Optional[int] = None) -> StackSet:
+              streams: Optional[int] = None, affinity=None) -> StackSet:
         """A set of one stream's stacks, or with `streams` = A the stacks
-        of a lockstep group of A streams."""
+        of a lockstep group of A streams. affinity: a hashable tag of the
+        holder (a kind of decoder, or one stream of several): only the
+        holders of the same tag share sets, so the graphs of a set hold
+        its holders' keys, whatever the order of other holders' leases
+        and returns."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        key = (device, streams, width, height, R)
+        key = (device, streams, affinity, width, height, R)
         with self._lock:
             free = self._free.get(key)
             s = free.pop() if free else None
         if s is None:
-            s = StackSet(device, width, height, R, streams)
+            s = StackSet(device, width, height, R, streams, affinity)
         else:
             if device.type == "cuda":
                 cur = torch.cuda.current_stream(device)
@@ -496,9 +663,9 @@ class StackPool:
     def stats(self, lockstep: Optional[bool] = None) -> dict:
         """Sets (free and leased), graphs and bytes: the stacks' own, and
         what the graphs' captures added to their pools; each graph's
-        capture (G or B, ms by part, pool bytes, replays). lockstep: True
-        counts only the lockstep groups' sets, False only the decoders',
-        None both."""
+        capture (kind, G or B, ms by part, pool bytes, replays).
+        lockstep: True counts only the lockstep groups' sets, False only
+        the decoders', None both."""
         with self._lock:
             leased = list(self._leased)
             sets = leased + [s for free in self._free.values() for s in free]
@@ -511,7 +678,8 @@ class StackPool:
                 "stack_bytes": sum(s.nbytes() for s in sets),
                 "graphs": len(graphs),
                 "graph_pool_bytes": sum(g.pool_bytes or 0 for g in graphs),
-                "captures": [{"pictures": g.group, "capture_ms": g.capture_ms,
+                "captures": [{"kind": g.kind, "pictures": g.group,
+                              "capture_ms": g.capture_ms,
                               "capture_parts_ms": g.capture_parts,
                               "pool_bytes": g.pool_bytes,
                               "replays": g.replays} for g in graphs]}

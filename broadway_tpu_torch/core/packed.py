@@ -599,3 +599,62 @@ def unpack_arrs(buf: torch.Tensor, lay: PackedLayout, kb: int,
     out.update(_coeff_sections(dense, B, n))
     out.update(_derived_flags(cls, sid, idc, h, w, constrained_intra))
     return out
+
+
+# ---------------------------------------------------------------------------
+# the unpacked arrays as one buffer (the static input of an unpacked graph)
+# ---------------------------------------------------------------------------
+
+_ALIGN = 256        # every array starts where a CUDA allocation would
+
+
+def host_arrays_layout(arrs: Dict[str, np.ndarray]) -> tuple:
+    """Where each per-MB array of ``core.recon.host_picture_arrays`` (or
+    of the stacked band arrays of ``parallel.slices``) lies in one byte
+    buffer: a tuple of (name, is_bool, shape, offset), then the buffer's
+    size last. ``whole_conceal`` is not in it: the steps read that flag
+    on the host. Arrays keep ``state.tables_from_numpy``'s types (bool
+    stays bool, every integer type becomes int32). The shapes are the
+    picture's geometry's, so the layout (which a graph's key holds) is
+    one per geometry and form."""
+    fields, off = [], 0
+    for name in sorted(arrs):
+        if name == "whole_conceal":
+            continue
+        v = arrs[name]
+        is_bool = v.dtype == np.bool_
+        fields.append((name, is_bool, tuple(v.shape), off))
+        off += -(-v.size * (1 if is_bool else 4) // _ALIGN) * _ALIGN
+    return tuple(fields) + (off,)
+
+
+def pack_host_arrays(arrs: Dict[str, np.ndarray], layout: tuple
+                     ) -> np.ndarray:
+    """The arrays of `layout` (``host_arrays_layout``) as one u8 buffer."""
+    buf = np.zeros(layout[-1], np.uint8)
+    for name, is_bool, shape, off in layout[:-1]:
+        v = np.asarray(arrs[name], np.bool_ if is_bool else np.int32)
+        if v.shape != shape:
+            raise ValueError(f"{name}: {v.shape}, the layout holds {shape}")
+        buf[off:off + v.nbytes] = v.reshape(-1).view(np.uint8)
+    return buf
+
+
+def view_host_arrays(buf: torch.Tensor, layout: tuple
+                     ) -> Dict[str, torch.Tensor]:
+    """The per-MB dict (without ``whole_conceal``) as views of buf u8
+    [size] (``pack_host_arrays``'s, on any device): no copy, so a graph's
+    static buffer is each array's static input."""
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or \
+            buf.shape[0] != layout[-1]:
+        raise ValueError(f"buf must be u8 [{layout[-1]}], got {buf.dtype} "
+                         f"{tuple(buf.shape)}")
+    out = {}
+    for name, is_bool, shape, off in layout[:-1]:
+        n = int(np.prod(shape, dtype=np.int64))
+        if is_bool:
+            v = buf[off:off + n].view(torch.bool)
+        else:
+            v = buf[off:off + 4 * n].view(torch.int32)
+        out[name] = v.view(shape)
+    return out

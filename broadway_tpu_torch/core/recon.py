@@ -1,7 +1,8 @@
 """Whole-picture reconstruction on the device (torch twin of
 ``broadway_tpu.core.recon_tpu``'s ``decode_picture_impl`` with
 ``wf="pallas"``, ``update_stack_slot``, ``decode_picture_packed2``,
-``decode_picture_packed`` (v1), ``decode_pictures_packed_batch``,
+``decode_picture_packed`` (v1: ``decode_picture_packed_slots``),
+``decode_pictures_packed_batch``,
 ``decode_pictures_packed_group``, the frames ``TpuFrame`` /
 ``LazyTpuFrame`` and the host-side ``host_picture_arrays``).
 
@@ -16,6 +17,13 @@ The planes stay raster throughout: no diagonal-major packing.
 
 The reference-plane stacks are unpadded uint8 (core/state.py); the
 picture's planes are written into its DPB slot after decode.
+
+The one-picture bodies that core/graphs.py captures take the slot as an
+int64 [1] on the device (``write_slot``): ``decode_pictures_packed_group``
+with G = 1 for a v2 buffer, ``decode_picture_packed_slots`` for a v1
+buffer, ``decode_host_arrays_slots`` for the unpacked arrays flattened
+into one buffer (``packed.pack_host_arrays``), and the band step's
+(parallel/slices.py).
 
 A batch (``decode_picture(..., batch=B)``) is B pictures of one geometry,
 one per stream of a lockstep decode, with the pictures one after the other
@@ -41,7 +49,8 @@ from ..ops.gpu.deblock import deblock_params
 from ..ops.gpu.intra import intra_params
 from ..ops.gpu.residual import residual_stage
 from ..bitstream.mb_layer import MB_I16x16, MB_IPCM, MB_P, PictureData
-from .packed import PackedLayout, PackedLayoutV2, unpack_arrs, unpack_arrs_v2
+from .packed import PackedLayout, PackedLayoutV2, unpack_arrs, \
+    unpack_arrs_v2, view_host_arrays
 
 U8 = torch.uint8
 
@@ -325,6 +334,18 @@ def _skip_flags(whole_conceal: torch.Tensor, batch, dev):
     return False, flags.to(device=dev, dtype=torch.int32)
 
 
+def require_not_concealed(arrs: Dict[str, torch.Tensor], what: str) -> None:
+    """Raise unless the per-MB dict of a packed buffer has its
+    whole_conceal flag(s) off and on the host. K3's skip decision is read
+    on the host (``decode_picture``): a capture would freeze it, which
+    holds only because no picture of a packed path is wholly concealed."""
+    conceal = arrs["whole_conceal"]
+    if conceal.device.type != "cpu" or \
+            bool(conceal if conceal.dim() == 0 else conceal.any()):
+        raise RuntimeError(f"{what} holds a wholly concealed picture; "
+                           "packed pictures never are")
+
+
 def decode_picture(arrs: Dict[str, torch.Tensor], ref_y: torch.Tensor,
                    ref_c: torch.Tensor, w_mbs: int, h_mbs: int,
                    chroma_qp_offset: int, run_stages: int = 3,
@@ -431,6 +452,75 @@ def decode_arrays_into_slot(arrs: Dict[str, torch.Tensor],
     return frame
 
 
+def write_slot(Y: torch.Tensor, C: torch.Tensor, ref_y: torch.Tensor,
+               ref_c: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """A picture's planes (Y [H, W], C [2, H/2, W/2]) into stack slot
+    slots[0] (slots int64 [1] on the stacks' device, read there) -> its
+    YUV, u8 [1, bytes]: the end of every one-picture body that a graph
+    captures."""
+    ref_y.index_copy_(0, slots, Y[None])
+    ref_c.index_copy_(0, slots, C[None])
+    return torch.cat([Y.reshape(1, -1), C.reshape(1, -1)], dim=1)
+
+
+def check_slot_inputs(bufs: torch.Tensor, slots: torch.Tensor,
+                      dev: torch.device) -> None:
+    """Raise unless bufs is u8 [1, size] and slots int64 [1], both on
+    `dev`: a one-picture body's inputs."""
+    if bufs.dim() != 2 or bufs.shape[0] != 1 or bufs.dtype != U8 or \
+            bufs.device != dev:
+        raise ValueError(f"bufs must be u8 [1, size] on {dev}, got "
+                         f"{bufs.dtype} {tuple(bufs.shape)} on {bufs.device}")
+    if tuple(slots.shape) != (1,) or slots.dtype != torch.int64 or \
+            slots.device != dev:
+        raise ValueError(f"slots must be int64 [1] on {dev}, got "
+                         f"{slots.dtype} {tuple(slots.shape)} on "
+                         f"{slots.device}")
+
+
+def decode_picture_packed_slots(bufs: torch.Tensor, ref_y: torch.Tensor,
+                                ref_c: torch.Tensor, slots: torch.Tensor,
+                                lay: PackedLayout, kb: int,
+                                constrained_intra: bool,
+                                chroma_qp_offset: int,
+                                workspace: torch.Tensor = None
+                                ) -> torch.Tensor:
+    """The v1 step (the picture v2 declined, or ``Decoder(pack="v1")``),
+    eager or captured: bufs u8 [1, size], a v1 buffer of bucket kb, and
+    slots int64 [1] on the stacks' device -> the picture's YUV, u8 [1,
+    bytes], its planes written into stack slot slots[0]. It reads no host
+    value that depends on the inputs, so a CUDA graph captures it as it
+    stands (core/graphs.py)."""
+    check_slot_inputs(bufs, slots, ref_y.device)
+    arrs = unpack_arrs(bufs[0], lay, kb, constrained_intra, chroma_qp_offset)
+    require_not_concealed(arrs, "a v1 picture")
+    Y, C = decode_picture(arrs, ref_y, ref_c, lay.w, lay.h, chroma_qp_offset,
+                          workspace=workspace)
+    return write_slot(Y, C, ref_y, ref_c, slots)
+
+
+def decode_host_arrays_slots(bufs: torch.Tensor, ref_y: torch.Tensor,
+                             ref_c: torch.Tensor, slots: torch.Tensor,
+                             layout: tuple, w_mbs: int, h_mbs: int,
+                             chroma_qp_offset: int, whole_conceal: bool,
+                             workspace: torch.Tensor = None
+                             ) -> torch.Tensor:
+    """The unpacked step (``Decoder(pack="none")``, the lockstep's
+    fallback), eager or captured: bufs u8 [1, size],
+    ``host_picture_arrays`` flattened by ``packed.pack_host_arrays`` into
+    `layout`, and slots int64 [1] on the stacks' device -> the picture's
+    YUV, u8 [1, bytes], its planes written into stack slot slots[0]. The
+    arrays are views of bufs; whole_conceal, whether K3 is skipped, is a
+    host value (a graph's key holds it), so no capture freezes a flag read
+    from the device."""
+    check_slot_inputs(bufs, slots, ref_y.device)
+    arrs = view_host_arrays(bufs[0], layout)
+    arrs["whole_conceal"] = torch.tensor(bool(whole_conceal))
+    Y, C = decode_picture(arrs, ref_y, ref_c, w_mbs, h_mbs, chroma_qp_offset,
+                          workspace=workspace)
+    return write_slot(Y, C, ref_y, ref_c, slots)
+
+
 def decode_picture_packed2(buf: torch.Tensor, ref_y: torch.Tensor,
                            ref_c: torch.Tensor, slot: int,
                            lay: PackedLayoutV2, bk: tuple,
@@ -475,13 +565,7 @@ def decode_pictures_packed_group(bufs: torch.Tensor, ref_y: torch.Tensor,
     for g in range(G):
         arrs = unpack_arrs_v2(bufs[g], lay, bk, constrained_intra,
                               chroma_qp_offset)
-        # K3's skip decision is read on the host (decode_picture): a
-        # capture would freeze it, which holds only because no picture of
-        # a packed path is wholly concealed
-        conceal = arrs["whole_conceal"]
-        if conceal.device.type != "cpu" or bool(conceal):
-            raise RuntimeError("a frame group holds a wholly concealed "
-                               "picture; packed pictures never are")
+        require_not_concealed(arrs, "a frame group")
         Y, C = decode_picture(arrs, ref_y, ref_c, lay.w, lay.h,
                               chroma_qp_offset, workspace=workspace)
         dst = slots[g:g + 1]
@@ -490,18 +574,6 @@ def decode_pictures_packed_group(bufs: torch.Tensor, ref_y: torch.Tensor,
         yuv[g, :n_y] = Y.reshape(-1)
         yuv[g, n_y:] = C.reshape(-1)
     return yuv
-
-
-def decode_picture_packed(buf: torch.Tensor, ref_y: torch.Tensor,
-                          ref_c: torch.Tensor, slot: int, lay: PackedLayout,
-                          kb: int, constrained_intra: bool,
-                          chroma_qp_offset: int,
-                          workspace: torch.Tensor = None) -> TorchFrame:
-    """The per-picture step on a v1 buffer (the picture v2 declined, or
-    ``Decoder(pack="v1")``): as ``decode_picture_packed2``."""
-    arrs = unpack_arrs(buf, lay, kb, constrained_intra, chroma_qp_offset)
-    return decode_arrays_into_slot(arrs, ref_y, ref_c, slot, lay.w, lay.h,
-                                   chroma_qp_offset, workspace)
 
 
 def round_table(streams: Sequence[int], slots: Sequence[int], A: int,
@@ -553,13 +625,7 @@ def decode_pictures_packed_round(bufs: torch.Tensor, flat_y: torch.Tensor,
         raise ValueError(f"tab must be int32 [2, {B}] on {dev}, got "
                          f"{tab.dtype} {tuple(tab.shape)} on {tab.device}")
     arrs = unpack_arrs_v2(bufs, lay, bk, constrained_intra, chroma_qp_offset)
-    # K3's skip decision is read on the host (decode_picture): a capture
-    # would freeze it, which holds only because no picture of a packed
-    # path is wholly concealed
-    conceal = arrs["whole_conceal"]
-    if conceal.device.type != "cpu" or bool(conceal.any()):
-        raise RuntimeError("a lockstep round holds a wholly concealed "
-                           "picture; packed pictures never are")
+    require_not_concealed(arrs, "a lockstep round")
     Y, C = decode_picture(arrs, flat_y, flat_c, lay.w, lay.h,
                           chroma_qp_offset, batch=B, stack_base=tab[0],
                           n_ref=n_ref, workspace=workspace)

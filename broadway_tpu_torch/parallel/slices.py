@@ -29,10 +29,19 @@ Two upload forms, as in the JAX package: the picture's v2 buffer, sent
 once to each distinct device, unpacked there and cut per band; and the
 host-array form (``band_host_arrays``, ``band_host_arrays_ghost``) for a
 picture v2 declines, or on request (``pack="none"``).
+
+As the JAX package jits its band step per key, a mesh whose bands all
+lie on one card runs the band step (``decode_band_picture``,
+``decode_band_arrays``: the picture into its stack slot, the slot an
+input on the card) as one CUDA graph per key on the decoder's pooled
+stack set (``BandSlicer``; core/graphs.py). A mesh over several devices
+keeps the eager step: its bands' copies cross cards, which one graph does
+not capture.
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Dict, List, Sequence
 
@@ -41,6 +50,7 @@ import torch
 
 from ..bitstream.mb_layer import PictureData
 from ..core import decoder as DEC
+from ..core import graphs as GR
 from ..core import packed as PK
 from ..core import recon as RC
 from ..core.state import tables_from_numpy
@@ -170,13 +180,19 @@ def comm_volume_2d(w_mbs: int, h_mbs: int, n_bands: int,
 
 def decode_bands(bands: Sequence[Dict[str, torch.Tensor]],
                  mesh: Sequence[torch.device], stacks: dict, w_mbs: int,
-                 h_mbs: int, chroma_qp_offset: int, cross: bool) -> dict:
+                 h_mbs: int, chroma_qp_offset: int, cross: bool,
+                 workspace: dict = None) -> dict:
     """One band-sharded picture. bands[k]: band k's per-MB dict on mesh[k]
     (with the ghost row first when `cross`, the idc-0 chain); stacks:
     {device: (ref_y, ref_c)} with the full-height references on every
     distinct device. Returns {device: the picture's YUV, u8 [H*W*3/2]}
-    (``TorchFrame``'s layout) on every distinct device of the mesh."""
+    (``TorchFrame``'s layout) on every distinct device of the mesh.
+    workspace: {device: K2/K3's progress counters there (int32, at least
+    hb + 1)}, when the caller owns them (a captured graph owns its own);
+    else the wrappers' per-stream counters. The bands of a device run one
+    after the other on its current stream, so they share its counters."""
     n = len(mesh)
+    ws = workspace or {}
     hb = h_mbs // n
     W, Wc = 16 * w_mbs, 8 * w_mbs
     Hb, Hbc = 16 * hb, 8 * hb
@@ -189,8 +205,8 @@ def decode_bands(bands: Sequence[Dict[str, torch.Tensor]],
         ref_y, ref_c = stacks[dev]
         planes.append(RC.decode_picture(
             arrs, ref_y, ref_c, w_mbs, hb, chroma_qp_offset,
-            run_stages=2 if cross else 3, mb0=k * hb * w_mbs,
-            ref_h_mbs=h_mbs))
+            run_stages=2 if cross else 3, workspace=ws.get(dev),
+            mb0=k * hb * w_mbs, ref_h_mbs=h_mbs))
     if cross:
         halo = None
         for k, dev in enumerate(mesh):
@@ -205,7 +221,7 @@ def decode_bands(bands: Sequence[Dict[str, torch.Tensor]],
             Cg = torch.cat([gc, C], dim=1)
             KW.deblock_wavefront(Yg, Cg,
                                  deblock_params(bands[k], w_mbs, hb + 1),
-                                 w_mbs, hb + 1)
+                                 w_mbs, hb + 1, workspace=ws.get(dev))
             planes[k] = (Yg[16:], Cg[:, 8:])
             ghosts[k] = (Yg[:16], Cg[:, :8])
             halo = (Yg[-16:], Cg[:, -8:])       # band k's final bottom row
@@ -228,6 +244,76 @@ def decode_bands(bands: Sequence[Dict[str, torch.Tensor]],
     return out
 
 
+def _bands_into_slot(bands: Sequence[Dict[str, torch.Tensor]],
+                     ref_y: torch.Tensor, ref_c: torch.Tensor,
+                     slots: torch.Tensor, w_mbs: int, h_mbs: int,
+                     chroma_qp_offset: int, cross: bool,
+                     workspace: torch.Tensor) -> torch.Tensor:
+    """``decode_bands`` with every band on the stacks' device, then the
+    picture into stack slot slots[0] -> its YUV, u8 [1, bytes]."""
+    dev = ref_y.device
+    yuv = decode_bands(bands, [dev] * len(bands), {dev: (ref_y, ref_c)},
+                       w_mbs, h_mbs, chroma_qp_offset, cross,
+                       None if workspace is None else {dev: workspace})[dev]
+    n_y = 256 * w_mbs * h_mbs
+    H, W = 16 * h_mbs, 16 * w_mbs
+    return RC.write_slot(yuv[:n_y].view(H, W),
+                         yuv[n_y:].view(2, H // 2, W // 2), ref_y, ref_c,
+                         slots)
+
+
+def decode_band_picture(bufs: torch.Tensor, ref_y: torch.Tensor,
+                        ref_c: torch.Tensor, slots: torch.Tensor,
+                        n_bands: int, cross: bool, lay: PK.PackedLayoutV2,
+                        bk: tuple, constrained_intra: bool,
+                        chroma_qp_offset: int,
+                        workspace: torch.Tensor = None) -> torch.Tensor:
+    """The band step of a mesh whose n_bands bands all lie on the stacks'
+    device (the body of the JAX package's
+    ``decode_picture_sliced_x_v2_impl`` / ``decode_picture_sliced_v2_impl``
+    under its jit): bufs u8 [1, size], the picture's v2 buffer, and slots
+    int64 [1] on that device -> the picture's YUV, u8 [1, bytes], written
+    into stack slot slots[0]. One unpack; each band cut from it
+    (``cut_band_ghost`` with the idc-0 chain, `cross`, else ``cut_band``);
+    ``decode_bands``. It reads no host value that depends on the inputs,
+    so a CUDA graph captures it as it stands (core/graphs.py
+    ``PictureGraph``); K1's band offsets are host ints of n_bands, which
+    the graph's key holds. workspace: K2/K3's progress counters (int32,
+    at least hb + 1)."""
+    RC.check_slot_inputs(bufs, slots, ref_y.device)
+    w, h = lay.w, lay.h
+    whole = PK.unpack_arrs_v2(bufs[0], lay, bk, constrained_intra,
+                              chroma_qp_offset)
+    RC.require_not_concealed(whole, "a band picture")
+    cut = cut_band_ghost if cross else cut_band
+    bands = [cut(whole, k, w, h // n_bands) for k in range(n_bands)]
+    return _bands_into_slot(bands, ref_y, ref_c, slots, w, h,
+                            chroma_qp_offset, cross, workspace)
+
+
+def decode_band_arrays(bufs: torch.Tensor, ref_y: torch.Tensor,
+                       ref_c: torch.Tensor, slots: torch.Tensor,
+                       layout: tuple, n_bands: int, cross: bool, w_mbs: int,
+                       h_mbs: int, chroma_qp_offset: int,
+                       whole_conceal: bool,
+                       workspace: torch.Tensor = None) -> torch.Tensor:
+    """The band step in the host-array form (the counterpart of the JAX
+    package's ``make_sliced_decoder_x`` / ``make_sliced_decoder``): bufs u8
+    [1, size], the stacked band arrays (``band_host_arrays``, or
+    ``band_host_arrays_ghost`` with `cross`) flattened by
+    ``packed.pack_host_arrays`` into `layout`, and slots int64 [1] on the
+    stacks' device -> the picture's YUV, u8 [1, bytes], written into
+    stack slot slots[0]. Band k's arrays are views of bufs; whole_conceal
+    stays a host value (a graph's key holds it), as in ``_band_to``."""
+    RC.check_slot_inputs(bufs, slots, ref_y.device)
+    stacked = PK.view_host_arrays(bufs[0], layout)
+    conceal = torch.tensor(bool(whole_conceal))
+    bands = [dict({k: v[b] for k, v in stacked.items()},
+                  whole_conceal=conceal) for b in range(n_bands)]
+    return _bands_into_slot(bands, ref_y, ref_c, slots, w_mbs, h_mbs,
+                            chroma_qp_offset, cross, workspace)
+
+
 class BandSlicer:
     """The band-sharded reconstruction of one stream, as a decoder's
     ``recon_strategy`` (the decoder runs on mesh[0]): each picture whose
@@ -235,14 +321,33 @@ class BandSlicer:
     the reference stacks on every distinct device; any other picture is
     declined (None) to the decoder's own per-picture step.
 
-    The decoder's stacks (``Decoder.reference_stacks``) serve mesh[0];
-    every other distinct device keeps a copy, refreshed in full whenever a
-    picture reached the stacks without this slicer (a declined or
-    concealed picture) or the stacks were made anew.
+    A mesh whose bands all lie on one device runs the band step
+    (``decode_band_picture``, or ``decode_band_arrays`` in the host-array
+    form) as the JAX package jits it: on a card one CUDA graph per key
+    (``core.graphs.GroupGraphs.picture``, kind "band" or "band_arrays";
+    key: n_bands, cross, the JAX static arguments, the device and the
+    stacks), on the decoder's pooled stack set, so the graphs outlive the
+    decoder; a key's first picture for the set's owner runs the step
+    eagerly, its second is captured and replayed, the rest replay. A
+    capture or replay that fails raises. A mesh over more than one device
+    keeps the eager step (``decode_bands``, then each device's stacks):
+    the decoder's stacks serve mesh[0], and every other distinct device
+    keeps a copy, refreshed in full whenever a picture reached the stacks
+    without this slicer (a declined or concealed picture) or the stacks
+    were made anew.
 
     stats counts "pictures" (band-sharded), "declined", "cross" (of the
-    pictures, those with an idc-0 slice: the chained deblock) and
-    "host_arrays" (of the pictures, those in the host-array form)."""
+    pictures, those with an idc-0 slice: the chained deblock),
+    "host_arrays" (of the pictures, those in the host-array form) and
+    "routes" (the pictures by route: "eager", "captured", "replayed" on a
+    one-device mesh, all eager on the CPU; "eager_multi_card" on a mesh
+    over more than one device).
+
+    Its decoder leases its stacks under the pool tag ``stack_affinity``
+    ("band"), apart from decoders of other kinds: a later band decoder of
+    the same geometry gets back a set that holds the band graphs."""
+
+    stack_affinity = "band"
 
     def __init__(self, mesh: Sequence[torch.device], pack: str = "v2",
                  stats: dict = None, cache: dict = None) -> None:
@@ -254,9 +359,21 @@ class BandSlicer:
         self.stats = stats if stats is not None else {}
         for k in ("pictures", "declined", "cross", "host_arrays"):
             self.stats.setdefault(k, 0)
+        self.stats.setdefault("routes", dict.fromkeys(
+            ("eager", "captured", "replayed", "eager_multi_card"), 0))
         self.cache = cache if cache is not None else {}
         self._mirrors: Dict[torch.device, tuple] = {}
         self._synced = None      # (stacks, next picture number) when fresh
+        self._progress: Dict[torch.device, torch.Tensor] = {}
+
+    def _workspace(self, dev: torch.device, rows: int) -> torch.Tensor:
+        """This slicer's K2/K3 progress counters on `dev` for its eager
+        steps (at least `rows`)."""
+        ws = self._progress.get(dev)
+        if ws is None or ws.numel() < rows:
+            ws = self._progress[dev] = torch.zeros(rows, dtype=torch.int32,
+                                                   device=dev)
+        return ws
 
     def _stacks(self, dec) -> tuple:
         sy, sc, slot = dec.reference_stacks()
@@ -283,38 +400,85 @@ class BandSlicer:
             return None
         sps, pps = dec.sps, dec.pps
         w, h = sps.width_mbs, sps.height_mbs
-        hb = h // n
         ci, co = pps.constrained_intra_pred, pps.chroma_qp_index_offset
         cross = any(sp.disable_deblocking_idc == 0 for sp in pic.slice_params)
-        stacks, slot = self._stacks(dec)
-        res = None
+        res = stacked = lay = None
         if self.pack == "v2":
             lay = PK.get_packed_layout_v2(w, h)
             res = PK.pack_picture_v2(pic, lay, self._scratch(lay))
-        if res is not None:
+        if res is None:
+            make = band_host_arrays_ghost if cross else band_host_arrays
+            stacked = make(pic, n, co, ci)
+            self.stats["host_arrays"] += 1
+        if len(_distinct(self.mesh)) > 1:
+            frame = self._multi_card(dec, w, h, cross, co, res, lay, ci,
+                                     stacked)
+        elif res is not None:
             buf, bk = res
-            host = torch.from_numpy(buf)
-            whole = {}
-            for dev in _distinct(self.mesh):
-                whole[dev] = PK.unpack_arrs_v2(host.to(dev), lay, bk, ci, co)
+            frame = self._one_device(
+                dec, "band", (n, cross, lay, bk, ci, co), buf, w, h,
+                functools.partial(decode_band_picture, n_bands=n,
+                                  cross=cross, lay=lay, bk=bk,
+                                  constrained_intra=ci, chroma_qp_offset=co))
+        else:
+            layout = PK.host_arrays_layout(stacked)
+            conceal = bool(stacked["whole_conceal"][0])
+            frame = self._one_device(
+                dec, "band_arrays", (n, cross, layout, w, h, co, conceal),
+                PK.pack_host_arrays(stacked, layout), w, h,
+                functools.partial(decode_band_arrays, layout=layout,
+                                  n_bands=n, cross=cross, w_mbs=w, h_mbs=h,
+                                  chroma_qp_offset=co,
+                                  whole_conceal=conceal))
+        self.stats["pictures"] += 1
+        self.stats["cross"] += int(cross)
+        return frame
+
+    def _one_device(self, dec, kind: str, args: tuple, buf: np.ndarray,
+                    w: int, h: int, body) -> RC.TorchFrame:
+        """The band step of a one-device mesh on the decoder's stack set
+        (``core.graphs.picture_step``): the graph of its key (kind, args:
+        the step's static arguments, which `body` has bound) on a card;
+        `body` eagerly for a key's first picture for the set's owner, and
+        on the CPU, with this slicer's counters."""
+        sy, sc, slot = dec.reference_stacks()
+        rows = h // self.n_bands + 1
+        graphs = dec.group_graphs
+        with graphs.counted(self.stats["routes"]):
+            return GR.picture_step(graphs, kind, args, body, buf, slot, sy,
+                                   sc, rows,
+                                   self._workspace(self.mesh[0], rows))
+
+    def _multi_card(self, dec, w: int, h: int, cross: bool, co: int, res,
+                    lay, ci: bool, stacked: dict) -> RC.TorchFrame:
+        """The eager band step over a mesh of several devices: the v2
+        buffer (res = (buf, bk) of layout lay) sent once to each distinct
+        device, unpacked there and cut per band, or else each band's host
+        arrays (`stacked`) sent to its device; then ``decode_bands`` and
+        the picture into every device's stacks."""
+        hb = h // self.n_bands
+        stacks, slot = self._stacks(dec)
+        if res is not None:
+            host = torch.from_numpy(res[0])
+            whole = {dev: PK.unpack_arrs_v2(host.to(dev), lay, res[1], ci,
+                                            co)
+                     for dev in _distinct(self.mesh)}
             cut = cut_band_ghost if cross else cut_band
             bands = [cut(whole[dev], k, w, hb)
                      for k, dev in enumerate(self.mesh)]
         else:
-            make = band_host_arrays_ghost if cross else band_host_arrays
-            stacked = make(pic, n, co, ci)
             bands = [_band_to(stacked, k, dev)
                      for k, dev in enumerate(self.mesh)]
-            self.stats["host_arrays"] += 1
+        workspace = {dev: self._workspace(dev, hb + 1)
+                     for dev in _distinct(self.mesh)}
         frame = None
         for dev, yuv in decode_bands(bands, self.mesh, stacks, w, h, co,
-                                     cross).items():
+                                     cross, workspace).items():
             f = RC.TorchFrame(yuv, 16 * w, 16 * h)
             RC.update_stack_slot(*stacks[dev], slot, f)
             if dev == self.mesh[0]:
                 frame = f
-        self.stats["pictures"] += 1
-        self.stats["cross"] += int(cross)
+        self.stats["routes"]["eager_multi_card"] += 1
         self._synced = (stacks[self.mesh[0]][0], dec.pic_number + 1)
         return frame
 
@@ -371,7 +535,17 @@ def decode_streams_sliced_dp(datas: Sequence[bytes], grid=None,
     A picture of a stream that does not align with the bands is declined
     to that stream's decoder. grid: rows of devices (default: the card
     for every band of every stream). stats, when given, receives "rounds"
-    and "streams", the per-stream counts of ``BandSlicer``."""
+    and "streams", the per-stream counts of ``BandSlicer`` (its "routes"
+    among them).
+
+    Where JAX runs one 2-D program a round, a row of one card here
+    replays S band graphs a round, one per stream (``BandSlicer``): each
+    stream has reference stacks of its own, its decoder's pooled set, and
+    a graph bakes in the stacks it reads and writes. Stream i's decoder
+    leases under the pool tag ("sliced_dp", i) (``Decoder.stack_affinity``),
+    so a later call of the same geometry gives each stream back the set
+    that holds its graphs, whatever the order of the leases and of other
+    decoders'."""
     S = len(datas)
     if grid is None:
         grid = [["cuda"] * n_bands] * S
@@ -422,6 +596,7 @@ def decode_streams_sliced_dp(datas: Sequence[bytes], grid=None,
             dec = DEC.Decoder(device=slicers[i].mesh[0], group_frames=0,
                               recon_strategy=make_recon(i),
                               parallel_slices=parallel_slices)
+            dec.stack_affinity = ("sliced_dp", i)
             got = dec.decode_annexb(datas[i])
             sync.leave()
             for o in got:

@@ -18,7 +18,10 @@ parameters, B and the stacks; the member streams and slots are an input
 on the card): a key's first round in a call runs eagerly, its second is
 captured, the rest replay. The A streams' stacks are a set leased from
 ``core.graphs.STACK_POOL`` for the call, so the graphs outlive it and a
-later call of the same geometry and A captures nothing.
+later call of the same geometry and A captures nothing. A picture that
+the v2 packer declines takes the unpacked step alone on its stream's
+stacks, on a card as the unpacked graph of its key under the same policy
+(``core.graphs.unpacked_step``).
 
 ``make_dp_mesh`` / ``shard_batch`` are the device-list form of the JAX
 package's mesh helpers. Not ported, because they serve its compile
@@ -39,7 +42,6 @@ from ..core import decoder as DEC
 from ..core import graphs as GR
 from ..core import packed as PK
 from ..core import recon as RC
-from ..core.state import tables_from_numpy
 
 
 def decode_pictures_batch(arrs: Dict[str, torch.Tensor], ref_y: torch.Tensor,
@@ -133,17 +135,15 @@ def _round_step(stacks: GR.StackSet, bufs: np.ndarray, sub: List[int],
     at the key's second round for this holder); a key's first round there,
     and every round on the CPU, runs the eager step."""
     dev = stacks.device
-    W, H = 16 * lay.w, 16 * lay.h
-    if not GR.runs_eagerly(dev):
-        tab = RC.round_table(sub, slots, *stacks.stack_y.shape[:2])
-        yuv = stacks.graphs.round(bufs, tab, stacks.stack_y, stacks.stack_c,
-                                  lay, bk, ci, co)
-        if yuv is not None:
-            return [RC.TorchFrame(y, W, H) for y in yuv]
-    stacks.graphs.counts["eager"] += 1
-    return RC.decode_pictures_packed_batch(
-        torch.from_numpy(bufs).to(dev), stacks.stack_y, stacks.stack_c,
-        slots, lay, bk, ci, co, streams=sub, workspace=stacks.progress)
+    return GR.graph_or_eager(
+        stacks.graphs, dev, lay.w, lay.h,
+        lambda: stacks.graphs.round(
+            bufs, RC.round_table(sub, slots, *stacks.stack_y.shape[:2]),
+            stacks.stack_y, stacks.stack_c, lay, bk, ci, co),
+        lambda: RC.decode_pictures_packed_batch(
+            torch.from_numpy(bufs).to(dev), stacks.stack_y, stacks.stack_c,
+            slots, lay, bk, ci, co, streams=sub,
+            workspace=stacks.progress))
 
 
 class _Staged:
@@ -179,9 +179,10 @@ def decode_streams_lockstep(datas: Sequence[bytes], device="cuda",
     stats, when given, receives "rounds", "batches" (the size of every
     batched step, in order), "fallbacks" (pictures that took the
     unpacked path), "routes" (the batched steps by route: "eager",
-    "captured", "replayed"; on the CPU all eager) and "keys" (the
-    distinct keys of the batched steps: B, bucket triple, picture
-    parameters)."""
+    "captured", "replayed"; on the CPU all eager), "fallback_routes"
+    (the same for the fallbacks: on a card one graph per stream's stacks
+    and key, ``core.graphs.unpacked_step``) and "keys" (the distinct keys
+    of the batched steps: B, bucket triple, picture parameters)."""
     dev = torch.device(device)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
@@ -194,15 +195,14 @@ def decode_streams_lockstep(datas: Sequence[bytes], device="cuda",
     results = [None] * A
     state = {"key": None, "set": None, "done": None}
     count = {"rounds": 0, "batches": [], "fallbacks": 0,
-             "routes": {"eager": 0, "captured": 0, "replayed": 0}}
+             "routes": {"eager": 0, "captured": 0, "replayed": 0},
+             "fallback_routes": {"eager": 0, "captured": 0, "replayed": 0}}
     keys = set()
 
     def give_back() -> None:
-        """Return the lockstep set to the pool, its routes counted."""
+        """Return the lockstep set to the pool."""
         stacks, state["set"] = state["set"], None
         if stacks is not None:
-            for route, n in stacks.graphs.counts.items():
-                count["routes"][route] += n
             GR.STACK_POOL.release(stacks)
 
     def leader_round() -> None:
@@ -222,7 +222,6 @@ def decode_streams_lockstep(datas: Sequence[bytes], device="cuda",
         # the leader changes from round to round: the set's return waits
         # for the work of each
         stacks.note_stream()
-        sy, sc = stacks.stack_y, stacks.stack_c
         lay = PK.get_packed_layout_v2(w, h)
         count["rounds"] += 1
 
@@ -238,8 +237,9 @@ def decode_streams_lockstep(datas: Sequence[bytes], device="cuda",
             BK = tuple(max(s.bk[j] for s in sp) for j in range(3))
             bufs = np.stack([PK.expand_buf_v2(s.payload, lay, s.bk, BK)
                              for s in sp])
-            frames = _round_step(stacks, bufs, sub, [s.slot for s in sp],
-                                 lay, BK, ci, co)
+            with stacks.graphs.counted(count["routes"]):
+                frames = _round_step(stacks, bufs, sub,
+                                     [s.slot for s in sp], lay, BK, ci, co)
             count["batches"].append(len(sub))
             keys.add((len(sub), BK, ci, co))
             for i, f in zip(sub, frames):
@@ -250,10 +250,12 @@ def decode_streams_lockstep(datas: Sequence[bytes], device="cuda",
             s = staging[i]
             if s.kind != "raw":
                 continue
-            arrs = tables_from_numpy(s.payload, dev)
-            results[i] = RC.decode_arrays_into_slot(
-                arrs, sy[i], sc[i], s.slot, w, h, s.co,
-                workspace=stacks.progress)
+            # on a card the unpacked graph of its key on the stream's
+            # stacks, under the rounds' capture policy
+            with stacks.graphs.counted(count["fallback_routes"]):
+                results[i] = GR.unpacked_step(
+                    stacks, s.payload, s.slot, stacks.stack_y[i],
+                    stacks.stack_c[i], s.co)
             count["fallbacks"] += 1
         if dev.type == "cuda":
             # the frames were made on the leader's current stream; whoever

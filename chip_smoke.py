@@ -74,8 +74,15 @@ failure is caught):
      printed with each capture's ms by part and pool bytes, the round's
      host ms eager against replay, and the lockstep sets' pool stats.
      Aggregate frames/s beside four sequential single-stream decodes
-     (warm passes, which capture nothing); and one v1 and one pack="none"
-     decode of a 2-picture stream, byte-equal to its v2 decode
+     (warm passes, which capture nothing); call 2's declined picture takes
+     the unpacked fallback (its route printed: eager, its key met once).
+     Then Decoder(pack="v1") and Decoder(pack="none") on the first 3
+     pictures of phase 3's stream, each through two decoders in turn,
+     byte-equal to the v2 decode: every step the graph of its key
+     (GroupGraphs.picture, kinds "v1" and "unpacked"), routes as the
+     capture policy gives on the keys counted on the host (the first
+     decoder captures, the second replays), each step's host ms by route
+     and each capture printed
  10. frame groups at 1080p: phase 9's four streams concatenated into one
      10-picture stream (IDRs at 0, 4, 6, 8) through Decoder(device="cuda",
      parallel_slices=8, group_frames=G) for G = 2 and 4 (groups of 4, 4
@@ -93,17 +100,24 @@ failure is caught):
      the chained deblock, K3 over 18 rows with the ghost row), (b) a
      4-band idc-2 stream (banded_stream: independent bands), (c) phase 3's
      8-slice stream (slices cross the bands: every picture declined to the
-     decoder's per-picture step on the card). Each through
-     decode_stream_sliced, every frame byte-equal to the single-card
-     Decoder(device="cuda") and to the NumPy path (decoded in side
-     processes meanwhile); K1, K2 and K3 counted on each run: 4 a picture
-     on (a) and (b), 1 on (c); decode_streams_sliced_dp over a [2, 2] grid
-     of the card on (b) and (a); per band of the IDR and the first P
+     decoder's per-picture step on the card). With the stack pool
+     emptied, each through decode_stream_sliced, every frame byte-equal
+     to the single-card Decoder(device="cuda") and to the NumPy path
+     (decoded in side processes meanwhile); the band step of the one-card
+     mesh as one CUDA graph per key (GroupGraphs.picture, kind "band") on
+     the decoder's pooled set: routes as the capture policy gives on the
+     keys packed on the host, each step's host ms by route (eager: a
+     key's first picture) and each capture's ms by part and pool bytes
+     printed; K1, K2 and K3 counted through the replays on each run: 4 a
+     picture on (a) and (b), 1 on (c); decode_streams_sliced_dp over a
+     [2, 2] grid of the card on (b) and (a), twice, the second call
+     capturing nothing; per band of the IDR and the first P
      picture of (a), K1's band form (mb0 > 0 from band 1), K2 over 17 rows
      and K3 over 18 against their plain versions, timed, with K3 over 17
      rows without the ghost row beside it; frames/s of each band path
-     beside the single-card decoder (median of 3 passes). One card shows
-     the band machinery, not cross-card copies or scaling.
+     beside the single-card decoder (median of 3 passes, which capture
+     nothing). One card shows the band machinery, not cross-card copies
+     or scaling.
  12. a third-party encoder and the last tools, at full width: (a) the
      committed x264 1920x1080 stream (broadway_tpu_torch/tools/data/, 8
      pictures, 4 slices, 3 references, cropped from 1088) through
@@ -212,28 +226,34 @@ def cuda_ms(fn, reps: int, hold_ms: float = 0.0) -> float:
     events around `reps` calls after one warm-up call). With hold_ms the
     stream is first kept busy for about that long (one spinning thread),
     so that the calls queue up behind it and the events read the device
-    even where a call is shorter than its enqueue on the host: hold_ms
-    must exceed the host's time for the `reps` calls, which is checked."""
+    even where a call is shorter than its enqueue on the host: the hold
+    must outlast the host's time for the `reps` calls, which is checked.
+    A busy host (the side processes of the start-up generate streams on
+    its cores) can take longer: the timing is then taken again with the
+    hold doubled, up to 8 x hold_ms, and never read while the host was
+    behind."""
     import torch
     fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if hold_ms:
-        from broadway_tpu_torch.ops.gpu import probe
+    for hold in (hold_ms, 2 * hold_ms, 4 * hold_ms, 8 * hold_ms):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            from broadway_tpu_torch.ops.gpu import probe
+            torch.cuda.synchronize()
+            held = torch.cuda.Event()
+            probe.hold_stream(int(hold * SM_CLOCK_KHZ), "cuda")
+            held.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        behind = hold and held.query()
         torch.cuda.synchronize()
-        held = torch.cuda.Event()
-        probe.hold_stream(int(hold_ms * SM_CLOCK_KHZ), "cuda")
-        held.record()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    if hold_ms and held.query():
-        raise AssertionError(f"the stream was held for {hold_ms} ms but "
-                             f"enqueueing {reps} calls took longer: the "
-                             "timing would read the host")
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+        if not behind:
+            return start.elapsed_time(end) / reps
+    raise AssertionError(f"the stream was held for up to {8 * hold_ms} ms "
+                         f"but enqueueing {reps} calls took longer: the "
+                         "timing would read the host")
 
 
 def _nbytes(*tensors) -> int:
@@ -1340,52 +1360,45 @@ def expected_routes(keys, graphs_exist: bool) -> dict:
             "replayed": len(keys) - eager - captured}
 
 
-class RoundTimes:
-    """Around decode_streams_lockstep calls: each batched step's host ms
-    by route (the eager step's enqueue, a capture + replay, a replay;
-    timed on the leader thread that runs it) and the round graphs
-    captured meanwhile."""
+class RouteTimes:
+    """Around a step method (``owner.name``): each call's host ms by the
+    route it took, read from its routes dict (`routes_of(obj, *args)`)
+    before and after the call, and each graph captured meanwhile (the
+    newest of `graphs_of(obj, *args)`, a ``GroupGraphs``)."""
+
+    def __init__(self, owner, name: str, routes_of, graphs_of) -> None:
+        self.owner, self.name = owner, name
+        self.routes_of, self.graphs_of = routes_of, graphs_of
 
     def __enter__(self):
-        from broadway_tpu_torch.core import graphs as GR
-        from broadway_tpu_torch.core import recon as RC
         self.host = {"eager": [], "captured": [], "replayed": []}
         self.graphs = []
-        self._saved = (RC.decode_pictures_packed_batch, GR.GroupGraphs.round)
-        eager, rnd = self._saved
+        self._saved = getattr(self.owner, self.name)
+        step = self._saved
 
-        def eager_timed(*a, **k):
+        def timed(obj, *a, **k):
+            routes = self.routes_of(obj, *a)
+            before = dict(routes)
             t0 = time.perf_counter()
-            r = eager(*a, **k)
-            self.host["eager"].append(1e3 * (time.perf_counter() - t0))
+            r = step(obj, *a, **k)
+            ms = 1e3 * (time.perf_counter() - t0)
+            route = next(x for x in self.host if routes[x] > before[x])
+            self.host[route].append(ms)
+            if route == "captured":
+                self.graphs.append(self.graphs_of(obj, *a).graphs()[-1])
             return r
 
-        def round_timed(graphs, *a, **k):
-            before = graphs.counts["captured"]
-            t0 = time.perf_counter()
-            r = rnd(graphs, *a, **k)
-            if r is not None:
-                ms = 1e3 * (time.perf_counter() - t0)
-                if graphs.counts["captured"] > before:
-                    self.host["captured"].append(ms)
-                    self.graphs.append(graphs.graphs()[-1])
-                else:
-                    self.host["replayed"].append(ms)
-            return r
-
-        RC.decode_pictures_packed_batch = eager_timed
-        GR.GroupGraphs.round = round_timed
+        setattr(self.owner, self.name, timed)
         return self
 
     def __exit__(self, *exc):
-        from broadway_tpu_torch.core import graphs as GR
-        from broadway_tpu_torch.core import recon as RC
-        RC.decode_pictures_packed_batch, GR.GroupGraphs.round = self._saved
+        setattr(self.owner, self.name, self._saved)
 
     def take(self) -> dict:
-        """The times and graphs since the last take."""
+        """The times and captures since the last take."""
         out = {"host_ms": {r: list(v) for r, v in self.host.items()},
-               "graphs": [{"B": g.group, "capture_ms": g.capture_ms,
+               "graphs": [{"kind": g.kind, "pictures": g.group,
+                           "capture_ms": g.capture_ms,
                            "capture_parts_ms": g.capture_parts,
                            "pool_bytes": g.pool_bytes} for g in self.graphs]}
         for v in self.host.values():
@@ -1394,11 +1407,21 @@ class RoundTimes:
         return out
 
 
+def log_route_times(label: str, t: dict) -> None:
+    log(f"    {label} host ms: eager {_rounded(t['host_ms']['eager'])}, "
+        f"capture + replay {_rounded(t['host_ms']['captured'])}, replay "
+        f"{_rounded(t['host_ms']['replayed'])}")
+    for g in t["graphs"]:
+        log(f"    captured a {g['kind']} graph: {g['capture_ms']:.3f} ms, by "
+            f"part {g['capture_parts_ms']}; {g['pool_bytes']} bytes added to "
+            "the graph pool")
+
+
 def _rounded(xs):
     return [round(x, 3) for x in xs]
 
 
-def lockstep_call(datas, refs, device, label: str, times: RoundTimes,
+def lockstep_call(datas, refs, device, label: str, times: RouteTimes,
                   want_routes: dict = None, **kw) -> dict:
     """One decode_streams_lockstep call with launch counts reset first:
     every stream byte-equal to its single-stream decode (`refs`), K1, K2
@@ -1434,16 +1457,17 @@ def lockstep_call(datas, refs, device, label: str, times: RoundTimes,
     log(f"  {label}: {len(datas)} streams of "
         f"{[len(r) for r in refs]} pictures byte-equal to their "
         f"single-stream decodes; rounds {stats['rounds']}, batches "
-        f"{stats['batches']}, fallbacks {stats['fallbacks']}, keys "
-        f"{stats['keys']}, routes {stats['routes']}; launches {counts}, "
-        f"device {counts_dev}; round host ms: eager enqueue "
+        f"{stats['batches']}, fallbacks {stats['fallbacks']} (routes "
+        f"{stats['fallback_routes']}), keys {stats['keys']}, routes "
+        f"{stats['routes']}; launches {counts}, "
+        f"device {counts_dev}; round host ms: eager "
         f"{_rounded(out['host_ms']['eager'])}, capture + replay "
         f"{_rounded(out['host_ms']['captured'])}, replay "
         f"{_rounded(out['host_ms']['replayed'])}")
     for g in out["graphs"]:
-        log(f"    captured a B = {g['B']} round: {g['capture_ms']:.3f} ms, "
-            f"by part {g['capture_parts_ms']}; {g['pool_bytes']} bytes "
-            "added to the graph pool")
+        log(f"    captured a B = {g['pictures']} round: "
+            f"{g['capture_ms']:.3f} ms, by part {g['capture_parts_ms']}; "
+            f"{g['pool_bytes']} bytes added to the graph pool")
     return out
 
 
@@ -1466,6 +1490,7 @@ def lockstep_phase(datas, want0, mixed, device, numpy_s: float,
 
     from broadway_tpu_torch.core import graphs as GR
     from broadway_tpu_torch.core import packed as PK
+    from broadway_tpu_torch.parallel import streams as LS
     from broadway_tpu_torch.parallel.streams import decode_streams_lockstep
 
     refs = [[f.tobytes() for f in decode_port(d, device)[0]] for d in datas]
@@ -1477,7 +1502,9 @@ def lockstep_phase(datas, want0, mixed, device, numpy_s: float,
     n_frames = sum(lens)
     keys = round_keys(datas)
 
-    with RoundTimes() as times:
+    with RouteTimes(LS, "_round_step",
+                    lambda stacks, *a: stacks.graphs.counts,
+                    lambda stacks, *a: stacks.graphs) as times:
         first = lockstep_call(datas, refs, device, "call 1", times,
                               expected_routes(keys, False))
 
@@ -1509,6 +1536,11 @@ def lockstep_phase(datas, want0, mixed, device, numpy_s: float,
         if declined["routes"]["captured"] != 0:
             raise AssertionError("the second lockstep call captured "
                                  f"{declined['routes']}")
+        # the fallback's key (the stream's stacks) is met once in the call
+        if declined["fallback_routes"] != {"eager": 1, "captured": 0,
+                                           "replayed": 0}:
+            raise AssertionError("the declined picture's fallback took "
+                                 f"{declined['fallback_routes']}")
 
         mixed_refs = {}
         for d in mixed:
@@ -1567,21 +1599,77 @@ def lockstep_phase(datas, want0, mixed, device, numpy_s: float,
     return out
 
 
-def pack_modes_phase(data: bytes, device) -> None:
-    """The single-stream fallback paths on the card: Decoder(pack="v1")
-    and Decoder(pack="none") on a 2-picture 1080p stream (IDR + P),
-    byte-equal to the v2 decode."""
+def v1_keys(data: bytes) -> list:
+    """Each picture's v1 key (bucket kb, picture parameters), from the
+    stream parsed and packed on the host as Decoder(pack="v1") packs it."""
+    from broadway_tpu_torch.core import decoder as DEC
+    from broadway_tpu_torch.core import packed as PK
+
+    keys = []
+
+    def collect(dec, pic):
+        lay = PK.get_packed_layout(pic.width_mbs, pic.height_mbs)
+        kb = PK.pack_picture(pic, lay, PK.PackScratch(lay))[1]
+        keys.append((kb, dec.pps.constrained_intra_pred,
+                     dec.pps.chroma_qp_index_offset))
+        return DEC.SKIP_RECON
+
+    dec = DEC.Decoder(device="cpu", recon_strategy=collect)
+    try:
+        dec.decode_annexb(data)
+    finally:
+        dec.close()
+    return keys
+
+
+def pack_modes_phase(data: bytes, device) -> dict:
+    """The single-stream v1 and unpacked paths on the card: Decoder(
+    pack="v1") and Decoder(pack="none") on a 3-picture 1080p stream (IDR
+    + 2 P), each through two decoders in turn, byte-equal to the v2
+    decode, K1 / K2 / K3 once a picture; each picture's step is the graph
+    of its key (v1: bucket and picture parameters; unpacked: the arrays'
+    layout, one a geometry), so the routes must be the capture policy's
+    on the keys counted on the host: the first decoder captures a key at
+    its second picture, the second decoder replays. Host ms of each step
+    by route and each capture are printed."""
+    from broadway_tpu_torch.core.decoder import Decoder
+
     want = [f.tobytes() for f in decode_port(data, device, pack="v2")[0]]
-    for pack in ("v1", "none"):
-        reset_launch_counts()
-        got = [f.tobytes() for f in decode_port(data, device, pack=pack)[0]]
-        if len(want) != 2 or got != want:
-            raise AssertionError(f"Decoder(pack={pack!r}) differs from the "
-                                 "v2 decode")
-        _require_one_launch_per_picture(f"pack={pack}", launch_counts(),
-                                        len(want))
-        log(f"  Decoder(device={device!r}, pack={pack!r}): {len(got)} "
-            "pictures byte-equal to the v2 decode")
+    n = len(want)
+    keys = {"v1": v1_keys(data), "none": [0] * n}
+    out = {}
+    for pack, method in (("v1", "_v1_step"), ("none", "_arrays_step")):
+        runs = []
+        with RouteTimes(Decoder, method,
+                        lambda dec, stacks, *a: stacks.graphs.counts,
+                        lambda dec, stacks, *a: stacks.graphs) as times:
+            for k in range(2):
+                reset_launch_counts()
+                dec = Decoder(device=device, parallel_slices=8, pack=pack)
+                try:
+                    got = [o.frame.tobytes() for o in dec.decode_annexb(data)]
+                    counts = dict(dec.group_graphs.counts)
+                finally:
+                    dec.close()
+                if n != 3 or got != want:
+                    raise AssertionError(f"Decoder(pack={pack!r}) run {k} "
+                                         "differs from the v2 decode")
+                _require_one_launch_per_picture(f"pack={pack}",
+                                                launch_counts(), n)
+                routes = expected_routes(keys[pack], k > 0)
+                if counts != routes:
+                    raise AssertionError(f"pack={pack} run {k}: routes "
+                                         f"{counts}, the capture policy "
+                                         f"gives {routes}")
+                runs.append(dict(routes=counts, **times.take()))
+                log(f"  Decoder(device={device!r}, pack={pack!r}) run {k}: "
+                    f"{n} pictures byte-equal to the v2 decode; keys "
+                    f"{len(set(keys[pack]))}, routes {counts}")
+                log_route_times(f"pack={pack} step", runs[-1])
+        if runs[0]["routes"]["captured"] + runs[1]["routes"]["replayed"] < 1:
+            raise AssertionError(f"pack={pack}: nothing captured or replayed")
+        out[pack] = runs
+    return out
 
 
 def group_phase(datas, device, numpy_s: float, passes: int = 3) -> dict:
@@ -1896,21 +1984,39 @@ def band_kernel_phase(data: bytes, device, seed: int = 11,
     return out
 
 
+def band_keys(data: bytes) -> list:
+    """Each picture's band key (bucket triple, picture parameters), from
+    the stream packed on the host as the band path packs it (a stream's
+    pictures all take the idc-0 chain or none, and one n_bands)."""
+    from broadway_tpu_torch.core.packed import pack_stream
+    return [(p[1], p[3], p[4]) for p in pack_stream(data)]
+
+
+def band_routes(keys, graphs_exist: bool) -> dict:
+    return dict(expected_routes(keys, graphs_exist), eager_multi_card=0)
+
+
 def band_phase(streams_abc: dict, want_c, pool, device, smi: str,
                passes: int = BAND_PASSES) -> dict:
     """Band sharding at 1080p on a mesh of the card four times (every
     band's kernels on it, one after the other): (a) the 4-slice idc-0
     stream (the chained ghost-row deblock), (b) the 4-band idc-2 stream
     (independent bands), (c) phase 3's 8-slice stream (every picture
-    declined to the per-picture step). Each stream through
-    decode_stream_sliced, byte-equal to the single-card decoder and to the
-    NumPy path (run in side processes meanwhile); K1, K2 and K3 counted:
-    once per band and picture on (a) and (b), once per picture on (c); then
-    decode_streams_sliced_dp on a [2, 2] grid of the card over (b) and
-    (a); each kernel's band form against its plain version, per band;
-    frames/s of each band path beside the single-card decoder."""
+    declined to the per-picture step). With the stack pool emptied, each
+    stream through decode_stream_sliced, byte-equal to the single-card
+    decoder and to the NumPy path (run in side processes meanwhile); the
+    band step as one CUDA graph per key on the decoder's pooled set, its
+    routes those of the capture policy on the keys packed on the host;
+    K1, K2 and K3 counted through the replays: once per band and picture
+    on (a) and (b), once per picture on (c); each band step's host ms by
+    route and each capture. Then decode_streams_sliced_dp on a [2, 2]
+    grid of the card over (b) and (a), twice: each stream's routes the
+    policy's, the second call capturing nothing; each kernel's band form
+    against its plain version, per band; frames/s of each band path
+    beside the single-card decoder, its warm passes capturing nothing."""
     import torch
 
+    from broadway_tpu_torch.core import graphs as GR
     from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
     from broadway_tpu_torch.parallel import slices as SL
 
@@ -1920,60 +2026,93 @@ def band_phase(streams_abc: dict, want_c, pool, device, smi: str,
     mesh = SL.make_band_mesh(device, N_BANDS)
     singles, out = {}, {"mesh": [str(d) for d in mesh], "streams": {},
                         "card": smi}
-    for lab, data in streams_abc.items():
-        single = [f.tobytes() for f in decode_port(data, device)[0]]
-        n = len(single)
-        st = {}
-        reset_launch_counts()
-        got = SL.decode_stream_sliced(data, mesh, N_BANDS, parallel_slices=8,
-                                      stats=st)
-        counts = launch_counts()
-        counts_dev = {"K2_intra": KW.device_launches(KW.INTRA),
-                      "K3_deblock": KW.device_launches(KW.DEBLOCK)}
-        if got != single:
-            raise AssertionError(f"band path, stream ({lab}): "
-                                 f"{_first_difference(got, single)} from the "
-                                 "single-card decoder")
-        declined = lab == "c"
-        want_st = {"pictures": 0 if declined else n,
-                   "declined": n if declined else 0,
-                   "cross": 0 if declined or lab == "b" else n,
-                   "host_arrays": 0}
-        if st != want_st:
-            raise AssertionError(f"band path, stream ({lab}): {st}, expected "
-                                 f"{want_st}")
-        per = 1 if declined else N_BANDS
-        _require_one_launch_per_picture(f"band ({lab}, {per} per picture)",
-                                        counts, per * n)
-        _require_one_launch_per_picture(f"band ({lab}, device)", counts_dev,
-                                        per * n)
-        singles[lab] = single
-        out["streams"][lab] = {"pictures": n, "stats": st,
-                               "launches": counts,
-                               "device_launches": counts_dev}
-        log(f"  ({lab}) decode_stream_sliced over {N_BANDS} bands: {n} "
-            f"frames byte-equal to Decoder(device={device!r}); {st}; "
-            f"wrapper launches {counts}, device {counts_dev}")
+    keys = {lab: band_keys(streams_abc[lab]) for lab in ("a", "b")}
+    GR.STACK_POOL.clear()       # the phase's graphs, counted from none
+    times = RouteTimes(SL.BandSlicer, "_one_device",
+                       lambda slicer, *a: slicer.stats["routes"],
+                       lambda slicer, dec, *a: dec.group_graphs)
+    with times:
+        for lab, data in streams_abc.items():
+            single = [f.tobytes() for f in decode_port(data, device)[0]]
+            n = len(single)
+            st = {}
+            reset_launch_counts()
+            got = SL.decode_stream_sliced(data, mesh, N_BANDS,
+                                          parallel_slices=8, stats=st)
+            counts = launch_counts()
+            counts_dev = {"K2_intra": KW.device_launches(KW.INTRA),
+                          "K3_deblock": KW.device_launches(KW.DEBLOCK)}
+            if got != single:
+                raise AssertionError(f"band path, stream ({lab}): "
+                                     f"{_first_difference(got, single)} "
+                                     "from the single-card decoder")
+            declined = lab == "c"
+            want_st = {"pictures": 0 if declined else n,
+                       "declined": n if declined else 0,
+                       "cross": 0 if declined or lab == "b" else n,
+                       "host_arrays": 0,
+                       "routes": band_routes([] if declined else keys[lab],
+                                             False)}
+            if st != want_st:
+                raise AssertionError(f"band path, stream ({lab}): {st}, "
+                                     f"expected {want_st}")
+            per = 1 if declined else N_BANDS
+            _require_one_launch_per_picture(
+                f"band ({lab}, {per} per picture)", counts, per * n)
+            _require_one_launch_per_picture(f"band ({lab}, device)",
+                                            counts_dev, per * n)
+            singles[lab] = single
+            out["streams"][lab] = {"pictures": n, "stats": st,
+                                   "keys": len(set(keys.get(lab, []))),
+                                   "launches": counts,
+                                   "device_launches": counts_dev,
+                                   "band_step": times.take()}
+            log(f"  ({lab}) decode_stream_sliced over {N_BANDS} bands: {n} "
+                f"frames byte-equal to Decoder(device={device!r}); {st}; "
+                f"wrapper launches {counts}, device {counts_dev}")
+            log_route_times(f"({lab}) band step",
+                            out["streams"][lab]["band_step"])
 
-    st = {}
-    reset_launch_counts()
-    got = SL.decode_streams_sliced_dp([streams_abc["b"], streams_abc["a"]],
-                                      [[device] * 2] * 2, 2,
-                                      parallel_slices=8, stats=st)
-    counts = launch_counts()
-    for g, lab in zip(got, ("b", "a")):
-        if g != singles[lab]:
-            raise AssertionError(f"2-D form, stream ({lab}): "
-                                 f"{_first_difference(g, singles[lab])}")
-    n_dp = len(singles["a"]) + len(singles["b"])
-    _require_one_launch_per_picture("2-D (2 bands a picture)", counts,
-                                    2 * n_dp)
-    out["dp"] = {"grid": [2, 2], "streams": ["b", "a"], "launches": counts,
-                 "rounds": st["rounds"],
-                 "stats": st["streams"]}
-    log(f"  decode_streams_sliced_dp on a [2, 2] grid of {device}: (b) and "
-        f"(a) byte-equal to their single-card decodes; {st}; wrapper "
-        f"launches {counts}")
+        dp_keys = [keys["b"], keys["a"]]
+        out["dp"] = {"grid": [2, 2], "streams": ["b", "a"], "calls": []}
+        for k in range(2):
+            st = {}
+            reset_launch_counts()
+            got = SL.decode_streams_sliced_dp(
+                [streams_abc["b"], streams_abc["a"]], [[device] * 2] * 2, 2,
+                parallel_slices=8, stats=st)
+            counts = launch_counts()
+            for g, lab in zip(got, ("b", "a")):
+                if g != singles[lab]:
+                    raise AssertionError(
+                        f"2-D form, call {k + 1}, stream ({lab}): "
+                        f"{_first_difference(g, singles[lab])}")
+            n_dp = len(singles["a"]) + len(singles["b"])
+            _require_one_launch_per_picture("2-D (2 bands a picture)",
+                                            counts, 2 * n_dp)
+            routes = [s["routes"] for s in st["streams"]]
+            want_routes = [band_routes(kk, k > 0) for kk in dp_keys]
+            if routes != want_routes:
+                raise AssertionError(f"2-D form, call {k + 1}: routes "
+                                     f"{routes}, the capture policy gives "
+                                     f"{want_routes}")
+            out["dp"]["calls"].append({"launches": counts,
+                                       "rounds": st["rounds"],
+                                       "stats": st["streams"],
+                                       "band_step": times.take()})
+            log(f"  decode_streams_sliced_dp on a [2, 2] grid of {device}, "
+                f"call {k + 1}: (b) and (a) byte-equal to their single-card "
+                f"decodes; rounds {st['rounds']}, routes {routes}; wrapper "
+                f"launches {counts}")
+            log_route_times(f"2-D call {k + 1} band step",
+                            out["dp"]["calls"][-1]["band_step"])
+    out["dp"]["launches"] = out["dp"]["calls"][0]["launches"]
+    torch.cuda.synchronize()
+    out["stack_pool"] = GR.STACK_POOL.stats(lockstep=False)
+    log(f"  decoders' stack sets after the band calls: "
+        f"{ {k: v for k, v in out['stack_pool'].items() if k != 'captures'} }"
+        f"; graphs by kind "
+        f"{[c['kind'] for c in out['stack_pool']['captures']]}")
 
     # the kernels while the side processes decode: CUDA events, and every
     # short timing queued behind a held stream
@@ -1996,11 +2135,17 @@ def band_phase(streams_abc: dict, want_c, pool, device, smi: str,
         single_s, band_s = [], []
         for k in range(passes):
             single_s.append(decode_port(data, device)[1])
+            st = {}
             band_s.append(decode_port(
-                data, mesh[0], recon_strategy=SL.BandSlicer(mesh))[1])
+                data, mesh[0], recon_strategy=SL.BandSlicer(mesh,
+                                                            stats=st))[1])
+            if lab != "c" and st["routes"] != band_routes(keys[lab], True):
+                raise AssertionError(f"({lab}) warm pass {k}: routes "
+                                     f"{st['routes']}, expected "
+                                     f"{band_routes(keys[lab], True)}")
             log(f"  ({lab}) warm pass {k}: band path "
-                f"{n / band_s[-1]:.2f} frames/s, single-card "
-                f"{n / single_s[-1]:.2f} frames/s")
+                f"{n / band_s[-1]:.2f} frames/s (routes {st['routes']}), "
+                f"single-card {n / single_s[-1]:.2f} frames/s")
         rec = out["streams"][lab]
         rec["band_fps"] = n / _median(band_s)
         rec["single_fps"] = n / _median(single_s)
@@ -2008,6 +2153,7 @@ def band_phase(streams_abc: dict, want_c, pool, device, smi: str,
             f"frames/s, single-card {rec['single_fps']:.2f} ({smi})")
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
     return out
+
 
 def mv_shares(mv, rb) -> dict:
     """Of the MBs that predict (any block with a reference): the share
@@ -2420,7 +2566,8 @@ def run_phases(torch, smi: str, pool) -> int:
     mixed = [data, band_streams["a"], band_streams["b"]] * 2 + \
         [data, band_streams["a"]]
     lockstep = lockstep_phase(datas, want_frames, mixed, "cuda", numpy_s)
-    pack_modes_phase(datas[1], "cuda")
+    pack_modes = pack_modes_phase(bench_common.annexb_prefix(data, 3),
+                                  "cuda")
 
     log("[10] frame groups: one 10-picture 1920x1088 stream, G = 2 and 4")
     groups = group_phase(datas, "cuda", numpy_s)
@@ -2542,7 +2689,8 @@ def run_phases(torch, smi: str, pool) -> int:
     record = {"kernels": kernels, "handoff": probe,
               "big_handoff_floor_ms": big["handoff_floor_ms"],
               "step": step, "step_graphs": step_graphs,
-              "lockstep": lockstep, "groups": groups,
+              "lockstep": lockstep, "pack_modes": pack_modes,
+              "groups": groups,
               "bands": {k: v for k, v in bands.items() if k != "kernels"},
               "pump": {"x264": tools["x264"]["pump"],
                        "realistic": tools["realistic_pump"]},

@@ -102,7 +102,7 @@ def test_v1_picture_runs_the_pending_group_first(monkeypatch):
     data = SCENARIOS["inter_remainder"]()
     want = _frames(BaseDecoder(backend="cpu"), data)
     order, calls = [], [0]
-    v2, v1, run = PK.pack_picture_v2, DEC.decode_picture_packed, \
+    v2, v1, run = PK.pack_picture_v2, DEC.Decoder._v1_step, \
         GR.GroupGraphs.run
 
     def declining(*a, **k):
@@ -118,7 +118,7 @@ def test_v1_picture_runs_the_pending_group_first(monkeypatch):
         return run(self, bufs, *a, **k)
 
     monkeypatch.setattr(PK, "pack_picture_v2", declining)
-    monkeypatch.setattr(DEC, "decode_picture_packed", v1_step)
+    monkeypatch.setattr(DEC.Decoder, "_v1_step", v1_step)
     monkeypatch.setattr(GR.GroupGraphs, "run", group)
     assert _frames(Decoder(device="cpu", group_frames=4), data) == want
     assert order == ["group of 2", "v1", "group of 2"]

@@ -179,9 +179,11 @@ def test_cuda_decoder_equals_numpy(cuda, name):
 # ---------------------------------------------------------------------------
 
 # heights around the cluster edges (C = KW.CLUSTER = 8 rows a cluster):
-# C - 1, C, C + 1 and 2C + 1 rows, and the 4K picture's odd 135 rows
+# C - 1, C, C + 1, 2C + 1 and 2C + 2 rows (a 1080p band of 17 rows with
+# its ghost row: a partial last cluster of 2), and the 4K picture's odd
+# 135 rows
 GEOMETRIES = [(1, 1), (1, 7), (9, 1), (3, 2), (120, 68), (4, 7), (7, 8),
-              (6, 9), (5, 17), (240, 135)]
+              (6, 9), (5, 17), (120, 18), (240, 135)]
 
 
 def _t(a, dev):

@@ -261,8 +261,8 @@ def _forbid_eager(monkeypatch):
     for mod, name in ((GR, "decode_pictures_packed_group"),
                       (RC, "decode_picture_packed2"),
                       (DEC, "decode_picture_packed2"),
-                      (DEC, "decode_picture_packed"),
-                      (DEC, "decode_arrays_into_slot"),
+                      (GR, "decode_picture_packed_slots"),
+                      (GR, "decode_host_arrays_slots"),
                       (K1, "mc_predict_plain"),
                       (KW, "intra_wavefront_plain"),
                       (KW, "deblock_wavefront_plain")):

@@ -133,7 +133,7 @@ def test_v2_declined_picture_runs_v1_after_the_drain(monkeypatch):
     writes the stacks: every job queued before it has run first."""
     data = SCENARIOS["multi_ref"]()
     want = _frames(BaseDecoder(backend="cpu"), data)
-    v2, v1, step = PK.pack_picture_v2, DEC.decode_picture_packed, \
+    v2, v1, step = PK.pack_picture_v2, DEC.Decoder._v1_step, \
         DEC.decode_picture_packed2
     calls, order = [0], []
 
@@ -153,7 +153,7 @@ def test_v2_declined_picture_runs_v1_after_the_drain(monkeypatch):
 
     monkeypatch.setattr(PK, "pack_picture_v2", declining)
     monkeypatch.setattr(DEC, "decode_picture_packed2", pumped)
-    monkeypatch.setattr(DEC, "decode_picture_packed", v1_step)
+    monkeypatch.setattr(DEC.Decoder, "_v1_step", v1_step)
     assert _frames(Decoder(device="cpu", async_pump=True), data) == want
     assert order == ["pump", "pump", "v1", "pump", "pump", "pump"]
 

@@ -102,9 +102,11 @@ def test_sliced_decode_equals_jax_and_single(name, pack, jax_ref):
     got = SL.decode_stream_sliced(data, "cpu", 4, pack=pack, stats=st)
     assert got == want, [i for i, (a, b) in enumerate(zip(got, want))
                          if a != b]
-    assert st == {"pictures": n_pics - n_declined, "declined": n_declined,
-                  "cross": n_cross,
-                  "host_arrays": 0 if pack == "v2" else n_pics - n_declined}
+    n = n_pics - n_declined
+    assert st == {"pictures": n, "declined": n_declined, "cross": n_cross,
+                  "host_arrays": 0 if pack == "v2" else n,
+                  "routes": {"eager": n, "captured": 0, "replayed": 0,
+                             "eager_multi_card": 0}}
 
 
 def test_sliced_decode_runs_no_kernel_on_the_cpu():
