@@ -662,6 +662,11 @@ class Decoder:
             self._return_stacks()
 
     @property
+    def stack_set(self) -> Optional[StackSet]:
+        """The leased stack set (None while none is leased)."""
+        return self._stacks
+
+    @property
     def group_graphs(self) -> Optional[GroupGraphs]:
         """The graphs of the leased stacks (None while none are leased)."""
         return None if self._stacks is None else self._stacks.graphs

@@ -75,6 +75,7 @@ import numpy as np
 import torch
 
 from ..ops.gpu import _build
+from ..ops.gpu import peer as PEER
 from ..ops.gpu import wavefront_kernels as KW
 from .packed import PackedLayout, PackedLayoutV2, host_arrays_layout, \
     pack_host_arrays
@@ -139,6 +140,56 @@ def picture_step(graphs: "GroupGraphs", kind: str, args: tuple, body,
             torch.from_numpy(buf[None]).to(dev), stack_y, stack_c,
             torch.full((1,), slot, dtype=torch.int64, device=dev),
             workspace=workspace)[0], 16 * w_mbs, 16 * h_mbs))
+
+
+def mesh_step(graphs: "GroupGraphs", args: tuple, runs: Sequence[tuple],
+              stacks: dict, buf: np.ndarray, slot: int, rows: int,
+              run_body, gather_body, workspace: dict) -> TorchFrame:
+    """One picture's band step over a mesh of several devices
+    (``MeshGraph``, kind "band_mesh") -> its frame on the first device.
+    runs: [(device, (band, ...))], the mesh's runs of consecutive bands on
+    one device, in band order; stacks: {device: (stack_y, stack_c)} for
+    every distinct device, the first the set's; run_body(bufs, stack_y,
+    stack_c, bands, halo=, workspace=, fetch=) -> the bands' final
+    planes, and gather_body(finals, stack_y, stack_c, slots, fetch=) ->
+    the picture's YUV u8 [1, bytes], written into the slot: the bodies,
+    `args` (their static arguments, in the key) bound. buf: the picture's
+    input, u8 [size] on the host, sent to every device; slot: the stack
+    slot it writes. On cards the graphs of its key (``GroupGraphs.mesh``,
+    K2/K3 counters of `rows`); a key's first picture there, and every
+    picture on the CPU, runs the bodies eagerly on the same inputs, their
+    fetches ``copy_`` (ordered across devices by PyTorch), with
+    `workspace` ({device: at least `rows` counters})."""
+    dev0 = runs[0][0]
+    ref_y = stacks[dev0][0]
+    w_mbs, h_mbs = ref_y.shape[-1] // 16, ref_y.shape[-2] // 16
+
+    def eager() -> TorchFrame:
+        cards = list(stacks)
+        ms = dict.fromkeys(cards, 0.0)
+        bufs = {d: torch.from_numpy(buf[None]).to(d) for d in cards}
+        finals = {}
+        for dev, bands in runs:
+            t0 = time.perf_counter()
+            finals.update(zip(bands, run_body(
+                bufs[dev], *stacks[dev], bands,
+                halo=finals.get(bands[0] - 1), workspace=workspace[dev])))
+            ms[dev] += time.perf_counter() - t0
+        finals = [finals[k] for k in range(len(finals))]
+        out = {}
+        for d in cards:
+            t0 = time.perf_counter()
+            out[d] = gather_body(finals, *stacks[d], torch.full(
+                (1,), slot, dtype=torch.int64, device=d))
+            ms[d] += time.perf_counter() - t0
+        graphs.card_ms = {str(d): 1e3 * t for d, t in ms.items()}
+        return TorchFrame(out[dev0][0], 16 * w_mbs, 16 * h_mbs)
+
+    return graph_or_eager(
+        graphs, dev0, w_mbs, h_mbs,
+        lambda: graphs.mesh(args, runs, stacks, buf, slot, rows, run_body,
+                            gather_body),
+        eager)
 
 
 def v1_step(s: "StackSet", buf: np.ndarray, slot: int, lay: PackedLayout,
@@ -221,6 +272,10 @@ class GroupGraph:
         self.capture_parts = None   # {"enqueue_ms", "instantiate_ms"}
         self.pool_bytes = None      # what the capture added to the pool
         self.replays = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.bufs.device
 
     def _upload(self, bufs: np.ndarray, index) -> None:
         """The buffers and the index (a group's slots, a round's table)
@@ -378,6 +433,243 @@ class PictureGraph(GroupGraph):
                          workspace=self.workspace)
 
 
+class MeshGraph:
+    """The band step of a mesh over several cards for one key, captured
+    once and replayed: the counterpart of the JAX package's
+    ``jax.jit(shard_map(...))`` over a mesh of chips. A CUDA graph belongs
+    to one card, so the step is a graph per run of consecutive bands on
+    one card (``runs``; one a card on a mesh of distinct cards): the
+    run's bands reconstructed and, with the idc-0 chain, deblocked, the
+    first one's ghost row a peer copy of the previous run's last band
+    (JAX's ``ppermute``); and a gather graph per card: every band into
+    the picture there, the other cards' by peer copies (JAX's
+    ``all_gather``), and the picture into that card's stacks.
+
+    Order across cards is kept by external events inside the graphs: a
+    run's graph records ``done[run]`` after its last band is final, and a
+    graph that copies from that run waits on it just before the copy (so
+    a card's reconstruction never waits on another's chain). A graph's
+    wait takes the event's record that the host enqueued last, so the
+    host replays every run's graph in band order, then every gather
+    graph: each wait's record is already enqueued. Why the gather is a
+    graph apart: it waits on every run, and the run graphs of later
+    cards would be enqueued after it. Before a replay, each card's stream
+    waits on an event that every other card recorded after its previous
+    gather (on the host), so no run overwrites the final planes a gather
+    of the previous picture still reads.
+
+    Each graph is captured on its card's side stream (``side``: the
+    set's, per card), under ``torch.cuda.device(card)``, one at a time in
+    band order and under ``_capture_lock``; everything that crosses cards
+    exists before the capture that reads it: a run's final planes are
+    its graph's outputs, held here, and the copies are ``peer.copy``
+    (a cudaMemcpyAsync on the receiver's stream), which allocates
+    nothing. Each run has K2/K3 counters of its own (`rows`: hb + 1).
+    Static inputs: bufs u8 [1, size] and the slot int64 [1] on every
+    card, fed from one pinned staging buffer."""
+
+    kind = "band_mesh"
+    group = 1
+
+    def __init__(self, runs: Sequence[tuple], stacks: dict, size: int,
+                 rows: int, run_body, gather_body, side) -> None:
+        self.runs = [(torch.device(d), tuple(ks)) for d, ks in runs]
+        self.cards = list(dict.fromkeys(d for d, _ in self.runs))
+        if any(runs_eagerly(d) for d in self.cards):
+            raise ValueError("MeshGraph runs on CUDA devices, not "
+                             f"{self.cards}")
+        self.stacks = {d: stacks[d] for d in self.cards}
+        self.run_body, self.gather_body = run_body, gather_body
+        self._side = side
+        self.bufs = {d: torch.empty((1, size), dtype=torch.uint8, device=d)
+                     for d in self.cards}
+        self.index = {d: torch.zeros((1,), dtype=torch.int64, device=d)
+                      for d in self.cards}
+        pin = self.cards[0].type == "cuda"
+        self._host_bufs = torch.empty((1, size), dtype=torch.uint8,
+                                      pin_memory=pin)
+        self._host_index = torch.empty((1,), dtype=torch.int64,
+                                       pin_memory=pin)
+        self._uploaded = []     # events: the last upload from staging done
+        self._gathered = {}     # card -> event after its last gather
+        self.workspaces = [torch.zeros(rows, dtype=torch.int32, device=d)
+                           for d, _ in self.runs]
+        self.done = [torch.cuda.Event(external=True) for _ in self.runs]
+        self.run_graphs = [torch.cuda.CUDAGraph(keep_graph=True)
+                           for _ in self.runs]
+        self.gather_graphs = {d: torch.cuda.CUDAGraph(keep_graph=True)
+                              for d in self.cards}
+        self._run_of = {k: r for r, (_, ks) in enumerate(self.runs)
+                        for k in ks}
+        self.finals = None      # each band's final planes (run outputs)
+        self.out = None         # {card: yuv u8 [1, bytes]} (gather outputs)
+        self.launches = {}
+        self.device_launches = {}
+        self.capture_ms = None
+        self.capture_parts = None
+        self.pool_bytes = None
+        self.card_pool_bytes = None     # {card: bytes its captures added}
+        self.card_capture_ms = None     # {card: enqueue ms of its captures}
+        self.card_ms = None     # {card: host ms of its last replay's graphs}
+        self.replays = 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.cards[0]
+
+    def _upload(self, bufs: np.ndarray, index) -> None:
+        """The buffer and the slot into every card's static inputs, by
+        copies on each card's current stream that do not block the host;
+        the staging buffer is rewritten only once the copies out of it
+        have completed."""
+        index = np.asarray(index)
+        if tuple(bufs.shape) != tuple(self._host_bufs.shape) or \
+                index.shape != tuple(self._host_index.shape):
+            raise ValueError(f"{tuple(bufs.shape)} buffers and an index of "
+                             f"{index.shape} for a graph of "
+                             f"{tuple(self._host_bufs.shape)} and "
+                             f"{tuple(self._host_index.shape)}")
+        for ev in self._uploaded:
+            ev.synchronize()
+        self._host_bufs.numpy()[...] = bufs
+        self._host_index.numpy()[...] = index
+        self._uploaded = []
+        for d in self.cards:
+            self.bufs[d].copy_(self._host_bufs, non_blocking=True)
+            self.index[d].copy_(self._host_index, non_blocking=True)
+            self._uploaded.append(torch.cuda.current_stream(d).record_event())
+
+    def _fetch(self, card: torch.device):
+        """The fetch of a capture on `card`: a piece of a band of the same
+        card by ``copy_`` (its graph ran before on the card's stream); of
+        another card's band by ``peer.copy``, after a wait on the event
+        of that band's run (once a run in the capture)."""
+        waited = set()
+
+        def fetch(dst: torch.Tensor, src: torch.Tensor, band: int) -> None:
+            r = self._run_of[band]
+            if self.runs[r][0] == card:
+                dst.copy_(src)
+                return
+            if r not in waited:
+                self.done[r].wait(torch.cuda.current_stream(card))
+                waited.add(r)
+            PEER.copy(dst, src)
+        return fetch
+
+    def _capture(self, graph, card: torch.device, body):
+        """Capture body() on `card`'s side stream into its pool."""
+        stream, pool = self._side(card)
+        with torch.cuda.device(card), torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                return body(stream)
+            finally:
+                graph.capture_end()
+
+    def _record(self) -> None:
+        """Capture every run's graph in band order, then every gather
+        graph (nothing runs), and instantiate them; keeps the launches
+        they recorded, their cost by part and the bytes they added to the
+        cards' pools."""
+        with _capture_lock:
+            reserved = {d: torch.cuda.memory_reserved(d) for d in self.cards}
+            KW.take_captured(KW.INTRA)
+            KW.take_captured(KW.DEBLOCK)
+            enqueue = dict.fromkeys(self.cards, 0.0)
+            t0 = time.perf_counter()
+            finals = {}
+            with _build.recorded_launches() as tally:
+                for r, (card, ks) in enumerate(self.runs):
+                    def run(stream, r=r, card=card, ks=ks):
+                        got = self.run_body(
+                            self.bufs[card], *self.stacks[card], ks,
+                            halo=finals.get(ks[0] - 1),
+                            workspace=self.workspaces[r],
+                            fetch=self._fetch(card))
+                        self.done[r].record(stream)
+                        return got
+                    t = time.perf_counter()
+                    finals.update(zip(ks, self._capture(self.run_graphs[r],
+                                                        card, run)))
+                    enqueue[card] += time.perf_counter() - t
+                self.finals = [finals[k] for k in range(len(finals))]
+                self.out = {}
+                for card in self.cards:
+                    t = time.perf_counter()
+                    self.out[card] = self._capture(
+                        self.gather_graphs[card], card,
+                        lambda stream, card=card: self.gather_body(
+                            self.finals, *self.stacks[card],
+                            self.index[card], fetch=self._fetch(card)))
+                    enqueue[card] += time.perf_counter() - t
+            t1 = time.perf_counter()
+            for g in self.run_graphs + list(self.gather_graphs.values()):
+                g.instantiate()
+            t2 = time.perf_counter()
+            self.card_pool_bytes = {
+                str(d): torch.cuda.memory_reserved(d) - reserved[d]
+                for d in self.cards}
+            self.device_launches = {w: KW.take_captured(w)
+                                    for w in (KW.INTRA, KW.DEBLOCK)}
+        self.pool_bytes = sum(self.card_pool_bytes.values())
+        self.launches = dict(tally)
+        self.card_capture_ms = {str(d): 1e3 * t for d, t in enqueue.items()}
+        self.capture_parts = {"enqueue_ms": 1e3 * (t1 - t0),
+                              "instantiate_ms": 1e3 * (t2 - t1)}
+        self.capture_ms = 1e3 * (t2 - t0)
+
+    def record_and_replay(self, bufs: np.ndarray, index, stream=None,
+                          pool=None):
+        """For a key whose warm-up has run (its first picture, eagerly):
+        upload these inputs, capture every graph (each card's side stream
+        and pool: ``side``; `stream` and `pool`, the first card's, are
+        those) and replay them; returns as ``replay``."""
+        self._upload(bufs, index)
+        self._record()
+        return self._launch()
+
+    def replay(self, bufs: np.ndarray, index, marks: dict = None):
+        """Run the captured step on a new buffer and slot; returns [yuv of
+        the first card, a copy: the next replay overwrites the output].
+        marks, when given ({card: [torch.cuda.Event]}): two events of each
+        card are recorded on its stream, after its runs' graphs and after
+        its gather graph (a measurement's)."""
+        self._upload(bufs, index)
+        return self._launch(marks)
+
+    def _launch(self, marks: dict = None):
+        ms = dict.fromkeys(self.cards, 0.0)
+        for card in self.cards:
+            cur = torch.cuda.current_stream(card)
+            for other, ev in self._gathered.items():
+                if other != card:
+                    cur.wait_event(ev)
+        for (card, _), graph in zip(self.runs, self.run_graphs):
+            t0 = time.perf_counter()
+            with torch.cuda.device(card):
+                graph.replay()
+            ms[card] += time.perf_counter() - t0
+        for card, evs in (marks or {}).items():
+            evs[0].record(torch.cuda.current_stream(card))
+        for card, graph in self.gather_graphs.items():
+            t0 = time.perf_counter()
+            with torch.cuda.device(card):
+                graph.replay()
+            self._gathered[card] = torch.cuda.current_stream(
+                card).record_event()
+            ms[card] += time.perf_counter() - t0
+            if marks:
+                marks[card][1].record(torch.cuda.current_stream(card))
+        self.card_ms = {str(d): 1e3 * t for d, t in ms.items()}
+        for wrapper, n in self.launches.items():
+            _build.add_launches(wrapper, n)
+        for which, n in self.device_launches.items():
+            KW.add_launches(which, n)
+        self.replays += 1
+        return [self.out[self.cards[0]][0].clone()]
+
+
 class GroupGraphs:
     """The graphs of one stack set: at most MAX_GRAPHS of them, least
     recently used dropped first, captured on one side stream into one
@@ -391,10 +683,12 @@ class GroupGraphs:
 
     def __init__(self) -> None:
         self._graphs = collections.OrderedDict()
-        self._pool = None
-        self._stream = None
+        self._sides = {}         # device -> (side stream, memory pool)
         self.met = set()
         self.counts = {}
+        # host ms by card of the newest step over a mesh of several cards
+        # (``mesh_step``: its eager bodies, or its graphs' replays)
+        self.card_ms = {}
         self.new_owner()
 
     def new_owner(self) -> None:
@@ -406,15 +700,15 @@ class GroupGraphs:
         return list(self._graphs.values())
 
     @contextlib.contextmanager
-    def counted(self, into: dict):
+    def counted(self, into: dict, prefix: str = ""):
         """Add the routes that the steps run inside take (``counts``) to
-        `into` as well."""
+        `into` as well, each under prefix + its name."""
         before = dict(self.counts)
         try:
             yield
         finally:
             for route, n in self.counts.items():
-                into[route] += n - before[route]
+                into[prefix + route] += n - before[route]
 
     def clear(self) -> None:
         """Drop every graph."""
@@ -439,11 +733,13 @@ class GroupGraphs:
             self.counts["replayed"] += 1
         return graph
 
-    def _side(self, dev: torch.device) -> None:
-        """The side stream and the memory pool of the set's captures."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(device=dev)
+    def _side(self, dev: torch.device) -> tuple:
+        """(side stream, memory pool) of the set's captures on `dev`."""
+        side = self._sides.get(dev)
+        if side is None:
+            side = self._sides[dev] = (torch.cuda.Stream(device=dev),
+                                       torch.cuda.graph_pool_handle())
+        return side
 
     def _keep(self, key, graph: GroupGraph) -> None:
         """A graph whose capture succeeded joins the cache."""
@@ -473,9 +769,8 @@ class GroupGraphs:
         graph = self._get(key)
         if graph is not None:
             return graph.replay(bufs, slots)
-        self._side(dev)
         graph = GroupGraph(ref_y, ref_c, G, bufs.shape[1], *args)
-        yuv = graph.capture(bufs, slots, self._stream, self._pool)
+        yuv = graph.capture(bufs, slots, *self._side(dev))
         self._keep(key, graph)
         return list(yuv)
 
@@ -535,6 +830,29 @@ class GroupGraphs:
                                  body))
         return None if yuv is None else yuv[0]
 
+    def mesh(self, args: tuple, runs: Sequence[tuple], stacks: dict,
+             buf: np.ndarray, slot: int, rows: int, run_body,
+             gather_body) -> Optional[torch.Tensor]:
+        """The band step over a mesh of several cards (``MeshGraph``,
+        ``mesh_step``'s arguments) as the graphs of its key: `args`, the
+        runs (each card and its bands) and every card's stacks' address
+        and shape; replayed when captured; captured and replayed when the
+        current owner met the key before. Returns the picture's YUV u8
+        [bytes] on the first card, or None the first time the owner meets
+        the key: the caller then runs the bodies eagerly, the key's
+        warm-up."""
+        key = ("band_mesh",) + tuple(args) + \
+            tuple((d, tuple(ks)) for d, ks in runs) + \
+            tuple(self._stacks_key(*stacks[d]) for d in stacks)
+        yuv = self._second_time(
+            key, buf[None], [slot],
+            lambda: MeshGraph(runs, stacks, buf.size, rows, run_body,
+                              gather_body, self._side))
+        if yuv is None:
+            return None
+        self.card_ms = self._graphs[key].card_ms
+        return yuv[0]
+
     def _second_time(self, key: tuple, bufs: np.ndarray, index, make):
         """The graph of `key` on these inputs: replayed; or made by
         `make`, captured and replayed when the owner met the key once
@@ -546,8 +864,8 @@ class GroupGraphs:
             self.met.add(key)
             return None
         graph = make()
-        self._side(graph.bufs.device)
-        out = graph.record_and_replay(bufs, index, self._stream, self._pool)
+        out = graph.record_and_replay(bufs, index,
+                                      *self._side(graph.device))
         self._keep(key, graph)
         return out
 
@@ -576,6 +894,9 @@ class StackSet:
         self.progress = torch.zeros((streams or 1) * (height // 16),
                                     dtype=torch.int32, device=device)
         self.graphs = GroupGraphs()
+        # sets on other devices leased beside this one for its owner (a
+        # band mesh's mirrors: device -> StackSet), given back with it
+        self.companions = {}
         self._used = {}          # the CUDA streams the owner's work ran on
         self._returned = []      # events recorded on them at its return
 
@@ -644,8 +965,12 @@ class StackPool:
         return s
 
     def release(self, s: StackSet) -> None:
-        """Take back a leased set: an event on each stream its owner's
-        work ran on orders its next lease after that work."""
+        """Take back a leased set, and its companions: an event on each
+        stream its owner's work ran on orders its next lease after that
+        work."""
+        companions, s.companions = s.companions, {}
+        for c in companions.values():
+            self.release(c)
         if s.device.type == "cuda":
             s._returned = [st.record_event() for st in s._used.values()]
         s._used = {}

@@ -79,6 +79,10 @@ SIGNATURES = {
     "bw_wavefront_last_resident": [_I],
     # which -> the cluster size of the newest launch
     "bw_wavefront_last_cluster": [_I],
+    # device, peer -> 0: device's context reads and writes peer's memory
+    "bw_peer_enable": [_I, _I],
+    # dst, src, bytes, stream: a copy between cards on the receiver's stream
+    "bw_peer_copy": [_P, _P, ct.c_longlong, _P],
 }
 
 _lock = threading.Lock()

@@ -5,38 +5,42 @@ sliceMode, Player/Decoder.js:677-727 copySlice).
 
 The mesh is a sequence of ``torch.device``, one per band; a device may
 repeat (``make_band_mesh``). Band k reconstructs MB rows [k*hb, (k+1)*hb)
-on mesh[k]: K1 at the band's global raster offset against full-height
-references (``mc_predict(..., mb0=, ref_h_mbs=)``), K2 and K3 on the
-band's own w x hb grid. Then every distinct device of the mesh receives
-every band (JAX's ``all_gather``: a copy of each band's planes into the
-full plane there) and writes the picture into its reference stacks.
-Bands on one device run one after the other on its current stream.
+on mesh[k] (``reconstruct_band``, (a)): K1 at the band's global raster
+offset against full-height references (``mc_predict(..., mb0=,
+ref_h_mbs=)``), K2 and K3 on the band's own w x hb grid. Then every
+distinct device of the mesh receives every band (``gather_bands``, (c),
+JAX's ``all_gather``: a copy of each band's planes into the full plane
+there) and writes the picture into its reference stacks. Bands on one
+device run one after the other on its current stream.
 
 Exactness domain, as in the JAX package: pictures whose slices each lie
 in one band (``_bands_aligned``); any other picture is declined, and the
 decoder's own per-picture step reconstructs it on mesh[0].
  - idc 1 or 2 (no filtering across slice edges): bands are independent.
  - idc 0: the reference deblocks the picture in raster order across
-   slice edges (h264bsd_deblocking.c:574-637), so the deblock is a CHAIN:
-   reconstruction runs on every band, then band k deblocks hb + 1 MB rows
-   once it has band k-1's final bottom MB row (JAX's ``ppermute``: a
-   ``.to(next device)``, ordered by the devices' streams). That ghost row
-   carries the up-neighbour metadata with its own deblock flags off, so K3
-   filters only row 1's top edge into it; its modified pels then replace
-   rows 13-15 of band k-1.
+   slice edges (h264bsd_deblocking.c:574-637), so the deblock is a CHAIN
+   (``deblock_band``, (b)): reconstruction runs on every band, then band
+   k deblocks hb + 1 MB rows once it has band k-1's final bottom MB row
+   (JAX's ``ppermute``: a copy from the previous device, ordered after
+   its work). That ghost row carries the up-neighbour metadata with its
+   own deblock flags off, so K3 filters only row 1's top edge into it;
+   its modified pels then replace rows 13-15 of band k-1.
 
 Two upload forms, as in the JAX package: the picture's v2 buffer, sent
 once to each distinct device, unpacked there and cut per band; and the
 host-array form (``band_host_arrays``, ``band_host_arrays_ghost``) for a
-picture v2 declines, or on request (``pack="none"``).
+picture v2 declines, or on request (``pack="none"``), flattened into one
+buffer and sent the same way (``band_arrays``).
 
-As the JAX package jits its band step per key, a mesh whose bands all
-lie on one card runs the band step (``decode_band_picture``,
-``decode_band_arrays``: the picture into its stack slot, the slot an
-input on the card) as one CUDA graph per key on the decoder's pooled
-stack set (``BandSlicer``; core/graphs.py). A mesh over several devices
-keeps the eager step: its bands' copies cross cards, which one graph does
-not capture.
+As the JAX package jits its band step per key (``jax.jit(shard_map(...))``
+over the mesh), the band step runs as CUDA graphs per key on a card
+(``BandSlicer``; core/graphs.py): a mesh whose bands all lie on one card
+as one graph (``decode_band_picture``, ``decode_band_arrays``); a mesh
+over several cards as a graph per run of bands on one card
+(``decode_band_run``: (a) and (b)) and a gather graph per card
+(``gather_into_slot``: (c)), the copies between cards peer copies
+(ops/gpu/peer.py) ordered by events that the graphs record and wait on.
+The eager ``decode_bands`` is built from the same bodies (a), (b), (c).
 """
 
 from __future__ import annotations
@@ -53,10 +57,14 @@ from ..core import decoder as DEC
 from ..core import graphs as GR
 from ..core import packed as PK
 from ..core import recon as RC
-from ..core.state import tables_from_numpy
+from ..ops.gpu import peer as PEER
 from ..ops.gpu import wavefront_kernels as KW
 from ..ops.gpu.deblock import deblock_params
 from .streams import LockstepAborted, _LockstepSync, make_dp_mesh
+
+# BandSlicer.stats["routes"]: one device's graph routes, then a mesh's
+ROUTES = ("eager", "captured", "replayed", "multi_card_eager",
+          "multi_card_captured", "multi_card_replayed")
 
 
 def make_band_mesh(devices="cuda", n_bands: int = 4) -> List[torch.device]:
@@ -178,70 +186,127 @@ def comm_volume_2d(w_mbs: int, h_mbs: int, n_bands: int,
             "streams": n_streams, "bands": n_bands}
 
 
+def eager_fetch(dst: torch.Tensor, src: torch.Tensor, band: int) -> None:
+    """dst <- src, a piece of band `band`'s planes, by ``copy_``: across
+    devices the copy orders itself after both devices' current streams.
+    The eager routes' fetch; a captured step fetches across cards with
+    peer copies ordered by events (core.graphs.MeshGraph)."""
+    dst.copy_(src, non_blocking=True)
+
+
+def reconstruct_band(arrs: Dict[str, torch.Tensor], ref_y: torch.Tensor,
+                     ref_c: torch.Tensor, band: int, w_mbs: int, h_mbs: int,
+                     n_bands: int, chroma_qp_offset: int, cross: bool,
+                     workspace: torch.Tensor = None) -> tuple:
+    """(a) Band `band` of a picture h_mbs MB rows high, reconstructed on
+    the stacks' device: K1 at the band's raster offset against the
+    full-height references, then the residual and K2 over its hb rows,
+    and K3 too unless `cross` (the idc-0 chain deblocks in (b)). arrs:
+    the band's per-MB dict (with the ghost row first when `cross`) ->
+    (Y [16 hb, W], C [2, 8 hb, W/2])."""
+    hb = h_mbs // n_bands
+    if cross:
+        arrs = {key: (v if key == "whole_conceal" else v[w_mbs:])
+                for key, v in arrs.items()}
+    return RC.decode_picture(arrs, ref_y, ref_c, w_mbs, hb, chroma_qp_offset,
+                             run_stages=2 if cross else 3,
+                             workspace=workspace, mb0=band * hb * w_mbs,
+                             ref_h_mbs=h_mbs)
+
+
+def deblock_band(arrs: Dict[str, torch.Tensor], Y: torch.Tensor,
+                 C: torch.Tensor, halo, band: int, w_mbs: int, hb: int,
+                 workspace: torch.Tensor = None, fetch=eager_fetch) -> tuple:
+    """(b) One step of the idc-0 chain (JAX's ``chain_step``): band
+    `band`'s planes from (a) under a ghost MB row, which is band
+    band - 1's final bottom MB row (`halo`: that band's final planes, on
+    its device, copied here by `fetch`; zeros for band 0), deblocked by
+    K3 over hb + 1 rows -> the band's final planes with the ghost row
+    first, (Yg [16 (hb + 1), W], Cg [2, 8 (hb + 1), W/2]). K3 filters
+    only the ghost row's bottom edge, rows 13-15 of band - 1's last MB
+    row, which ``gather_bands`` takes from here. All that does not need
+    the halo comes before its fetch, which waits on the previous band."""
+    Yg = torch.empty((16 * (hb + 1), 16 * w_mbs), dtype=Y.dtype,
+                     device=Y.device)
+    Cg = torch.empty((2, 8 * (hb + 1), 8 * w_mbs), dtype=C.dtype,
+                     device=C.device)
+    Yg[16:].copy_(Y)
+    Cg[:, 8:].copy_(C)
+    P = deblock_params(arrs, w_mbs, hb + 1)
+    if halo is None:
+        Yg[:16].zero_()
+        Cg[:, :8].zero_()
+    else:
+        fetch(Yg[:16], halo[0][-16:], band - 1)
+        fetch(Cg[:, :8], halo[1][:, -8:], band - 1)
+    KW.deblock_wavefront(Yg, Cg, P, w_mbs, hb + 1, workspace=workspace)
+    return Yg, Cg
+
+
+def band_rows(band: int, n_bands: int, hb: int, cross: bool) -> tuple:
+    """(top, lo, hi): band `band`'s final planes start at MB row `top` of
+    the picture (one above its own rows with the ghost row), and give the
+    picture MB rows [lo, hi); with `cross`, a band's last MB row comes
+    from the next band's ghost row, which K3 filtered last."""
+    top = band * hb - 1 if cross else band * hb
+    last = cross and band < n_bands - 1
+    return top, max(top, 0), (band + 1) * hb - int(last)
+
+
+def gather_bands(finals: Sequence[tuple], device, w_mbs: int, h_mbs: int,
+                 cross: bool, fetch=eager_fetch) -> torch.Tensor:
+    """(c) The all-gather: every band's final planes (finals[k], from (a),
+    or from (b) with `cross`, on band k's device) into one picture on
+    `device`, each band's rows by `fetch` -> its YUV, u8 [H*W*3/2]
+    (``TorchFrame``'s layout)."""
+    n = len(finals)
+    hb = h_mbs // n
+    n_y = 256 * w_mbs * h_mbs
+    yuv = torch.empty(n_y + n_y // 2, dtype=torch.uint8, device=device)
+    Y = yuv[:n_y].view(16 * h_mbs, 16 * w_mbs)
+    C = yuv[n_y:].view(2, 8 * h_mbs, 8 * w_mbs)
+    for k, (Yk, Ck) in enumerate(finals):
+        top, lo, hi = band_rows(k, n, hb, cross)
+        fetch(Y[16 * lo:16 * hi], Yk[16 * (lo - top):16 * (hi - top)], k)
+        fetch(C[:, 8 * lo:8 * hi], Ck[:, 8 * (lo - top):8 * (hi - top)], k)
+    return yuv
+
+
 def decode_bands(bands: Sequence[Dict[str, torch.Tensor]],
                  mesh: Sequence[torch.device], stacks: dict, w_mbs: int,
                  h_mbs: int, chroma_qp_offset: int, cross: bool,
                  workspace: dict = None) -> dict:
-    """One band-sharded picture. bands[k]: band k's per-MB dict on mesh[k]
-    (with the ghost row first when `cross`, the idc-0 chain); stacks:
-    {device: (ref_y, ref_c)} with the full-height references on every
-    distinct device. Returns {device: the picture's YUV, u8 [H*W*3/2]}
-    (``TorchFrame``'s layout) on every distinct device of the mesh.
+    """One band-sharded picture, eagerly: (a) every band on its device,
+    (b) the idc-0 chain when `cross`, (c) the gather on every distinct
+    device. bands[k]: band k's per-MB dict on mesh[k] (with the ghost row
+    first when `cross`); stacks: {device: (ref_y, ref_c)} with the
+    full-height references on every distinct device. Returns {device: the
+    picture's YUV, u8 [H*W*3/2]} on every distinct device of the mesh.
     workspace: {device: K2/K3's progress counters there (int32, at least
     hb + 1)}, when the caller owns them (a captured graph owns its own);
     else the wrappers' per-stream counters. The bands of a device run one
     after the other on its current stream, so they share its counters."""
-    n = len(mesh)
     ws = workspace or {}
-    hb = h_mbs // n
-    W, Wc = 16 * w_mbs, 8 * w_mbs
-    Hb, Hbc = 16 * hb, 8 * hb
-    planes, ghosts = [], [None] * n
-    for k, dev in enumerate(mesh):
-        arrs = bands[k]
-        if cross:
-            arrs = {key: (v if key == "whole_conceal" else v[w_mbs:])
-                    for key, v in arrs.items()}
-        ref_y, ref_c = stacks[dev]
-        planes.append(RC.decode_picture(
-            arrs, ref_y, ref_c, w_mbs, hb, chroma_qp_offset,
-            run_stages=2 if cross else 3, workspace=ws.get(dev),
-            mb0=k * hb * w_mbs, ref_h_mbs=h_mbs))
+    n = len(mesh)
+    finals = [reconstruct_band(bands[k], *stacks[dev], k, w_mbs, h_mbs, n,
+                               chroma_qp_offset, cross, ws.get(dev))
+              for k, dev in enumerate(mesh)]
     if cross:
-        halo = None
         for k, dev in enumerate(mesh):
-            Y, C = planes[k]
-            if halo is None:
-                gy = torch.zeros((16, W), dtype=Y.dtype, device=dev)
-                gc = torch.zeros((2, 8, Wc), dtype=C.dtype, device=dev)
-            else:
-                gy = halo[0].to(dev, non_blocking=True)
-                gc = halo[1].to(dev, non_blocking=True)
-            Yg = torch.cat([gy, Y])
-            Cg = torch.cat([gc, C], dim=1)
-            KW.deblock_wavefront(Yg, Cg,
-                                 deblock_params(bands[k], w_mbs, hb + 1),
-                                 w_mbs, hb + 1, workspace=ws.get(dev))
-            planes[k] = (Yg[16:], Cg[:, 8:])
-            ghosts[k] = (Yg[:16], Cg[:, :8])
-            halo = (Yg[-16:], Cg[:, -8:])       # band k's final bottom row
-    out = {}
-    n_y = 256 * w_mbs * h_mbs
-    for dev in _distinct(mesh):
-        yuv = torch.empty(n_y + n_y // 2, dtype=torch.uint8, device=dev)
-        Y = yuv[:n_y].view(16 * h_mbs, W)
-        C = yuv[n_y:].view(2, 8 * h_mbs, Wc)
-        for k in range(n):
-            y, c = planes[k]
-            Y[k * Hb:(k + 1) * Hb].copy_(y, non_blocking=True)
-            C[:, k * Hbc:(k + 1) * Hbc].copy_(c, non_blocking=True)
-            if ghosts[k] is not None and k > 0:
-                # band k's filter changed rows 13-15 of band k-1
-                Y[k * Hb - 16:k * Hb].copy_(ghosts[k][0], non_blocking=True)
-                C[:, k * Hbc - 8:k * Hbc].copy_(ghosts[k][1],
-                                                 non_blocking=True)
-        out[dev] = yuv
-    return out
+            finals[k] = deblock_band(bands[k], *finals[k],
+                                     finals[k - 1] if k else None, k, w_mbs,
+                                     h_mbs // n, ws.get(dev))
+    return {dev: gather_bands(finals, dev, w_mbs, h_mbs, cross)
+            for dev in _distinct(mesh)}
+
+
+def _into_slot(yuv: torch.Tensor, ref_y: torch.Tensor, ref_c: torch.Tensor,
+               slots: torch.Tensor) -> torch.Tensor:
+    """A picture's YUV into stack slot slots[0] -> the YUV, u8 [1, bytes]."""
+    H, W = ref_y.shape[-2:]
+    return RC.write_slot(yuv[:H * W].view(H, W),
+                         yuv[H * W:].view(2, H // 2, W // 2), ref_y, ref_c,
+                         slots)
 
 
 def _bands_into_slot(bands: Sequence[Dict[str, torch.Tensor]],
@@ -255,11 +320,71 @@ def _bands_into_slot(bands: Sequence[Dict[str, torch.Tensor]],
     yuv = decode_bands(bands, [dev] * len(bands), {dev: (ref_y, ref_c)},
                        w_mbs, h_mbs, chroma_qp_offset, cross,
                        None if workspace is None else {dev: workspace})[dev]
-    n_y = 256 * w_mbs * h_mbs
-    H, W = 16 * h_mbs, 16 * w_mbs
-    return RC.write_slot(yuv[:n_y].view(H, W),
-                         yuv[n_y:].view(2, H // 2, W // 2), ref_y, ref_c,
-                         slots)
+    return _into_slot(yuv, ref_y, ref_c, slots)
+
+
+def band_arrays(bufs: torch.Tensor, spec: tuple, bands: Sequence[int],
+                w_mbs: int, h_mbs: int, n_bands: int, cross: bool
+                ) -> Dict[int, Dict[str, torch.Tensor]]:
+    """The per-MB dicts of bands `bands` of the picture in bufs u8 [1,
+    size], on its device, as ``decode_bands`` takes them. spec ("v2",
+    lay, bk, constrained_intra, chroma_qp_offset): a v2 buffer, unpacked
+    once and cut per band (``cut_band_ghost`` with `cross`, else
+    ``cut_band``); ("arrays", layout, whole_conceal): the stacked band
+    arrays flattened by ``packed.pack_host_arrays`` into `layout`, band k's
+    arrays views of bufs, whole_conceal a host value (in the graph's key).
+    Reads no host value that depends on bufs."""
+    hb = h_mbs // n_bands
+    if spec[0] == "v2":
+        _, lay, bk, ci, co = spec
+        whole = PK.unpack_arrs_v2(bufs[0], lay, bk, ci, co)
+        RC.require_not_concealed(whole, "a band picture")
+        cut = cut_band_ghost if cross else cut_band
+        return {k: cut(whole, k, w_mbs, hb) for k in bands}
+    _, layout, whole_conceal = spec
+    stacked = PK.view_host_arrays(bufs[0], layout)
+    conceal = torch.tensor(bool(whole_conceal))
+    return {k: dict({key: v[k] for key, v in stacked.items()},
+                    whole_conceal=conceal) for k in bands}
+
+
+def decode_band_run(bufs: torch.Tensor, ref_y: torch.Tensor,
+                    ref_c: torch.Tensor, bands: Sequence[int], spec: tuple,
+                    n_bands: int, cross: bool, w_mbs: int, h_mbs: int,
+                    chroma_qp_offset: int, halo=None,
+                    workspace: torch.Tensor = None,
+                    fetch=eager_fetch) -> List[tuple]:
+    """One card's part of a band-sharded picture before the gather: bands
+    `bands` (consecutive, all on the stacks' device) of the picture in
+    bufs u8 [1, size] on that device (``band_arrays``'s spec), (a) each
+    reconstructed, then with `cross` (b) the chain over them in order,
+    the first one's ghost row from `halo` (band bands[0] - 1's final
+    planes, on its own card; None for band 0) -> each band's final planes,
+    as ``gather_bands`` takes them. The body of a card's band graph
+    (core.graphs.MeshGraph): it reads no host value that depends on its
+    inputs, and `fetch` is how it reaches another card."""
+    arrs = band_arrays(bufs, spec, bands, w_mbs, h_mbs, n_bands, cross)
+    finals = [reconstruct_band(arrs[k], ref_y, ref_c, k, w_mbs, h_mbs,
+                               n_bands, chroma_qp_offset, cross, workspace)
+              for k in bands]
+    if cross:
+        for i, k in enumerate(bands):
+            prev = finals[i - 1] if i else (halo if k else None)
+            finals[i] = deblock_band(arrs[k], *finals[i], prev, k, w_mbs,
+                                     h_mbs // n_bands, workspace, fetch)
+    return finals
+
+
+def gather_into_slot(finals: Sequence[tuple], ref_y: torch.Tensor,
+                     ref_c: torch.Tensor, slots: torch.Tensor, w_mbs: int,
+                     h_mbs: int, cross: bool, fetch=eager_fetch
+                     ) -> torch.Tensor:
+    """(c) on one card: every band's final planes (``decode_band_run``'s,
+    from every card) gathered into the picture, written into this card's
+    stack slot slots[0] (int64 [1] on the card) -> its YUV, u8 [1,
+    bytes]. The body of a card's gather graph (core.graphs.MeshGraph)."""
+    yuv = gather_bands(finals, ref_y.device, w_mbs, h_mbs, cross, fetch)
+    return _into_slot(yuv, ref_y, ref_c, slots)
 
 
 def decode_band_picture(bufs: torch.Tensor, ref_y: torch.Tensor,
@@ -282,13 +407,11 @@ def decode_band_picture(bufs: torch.Tensor, ref_y: torch.Tensor,
     at least hb + 1)."""
     RC.check_slot_inputs(bufs, slots, ref_y.device)
     w, h = lay.w, lay.h
-    whole = PK.unpack_arrs_v2(bufs[0], lay, bk, constrained_intra,
-                              chroma_qp_offset)
-    RC.require_not_concealed(whole, "a band picture")
-    cut = cut_band_ghost if cross else cut_band
-    bands = [cut(whole, k, w, h // n_bands) for k in range(n_bands)]
-    return _bands_into_slot(bands, ref_y, ref_c, slots, w, h,
-                            chroma_qp_offset, cross, workspace)
+    arrs = band_arrays(bufs, ("v2", lay, bk, constrained_intra,
+                              chroma_qp_offset), range(n_bands), w, h,
+                       n_bands, cross)
+    return _bands_into_slot([arrs[k] for k in range(n_bands)], ref_y, ref_c,
+                            slots, w, h, chroma_qp_offset, cross, workspace)
 
 
 def decode_band_arrays(bufs: torch.Tensor, ref_y: torch.Tensor,
@@ -304,14 +427,26 @@ def decode_band_arrays(bufs: torch.Tensor, ref_y: torch.Tensor,
     ``packed.pack_host_arrays`` into `layout`, and slots int64 [1] on the
     stacks' device -> the picture's YUV, u8 [1, bytes], written into
     stack slot slots[0]. Band k's arrays are views of bufs; whole_conceal
-    stays a host value (a graph's key holds it), as in ``_band_to``."""
+    stays a host value (a graph's key holds it)."""
     RC.check_slot_inputs(bufs, slots, ref_y.device)
-    stacked = PK.view_host_arrays(bufs[0], layout)
-    conceal = torch.tensor(bool(whole_conceal))
-    bands = [dict({k: v[b] for k, v in stacked.items()},
-                  whole_conceal=conceal) for b in range(n_bands)]
-    return _bands_into_slot(bands, ref_y, ref_c, slots, w_mbs, h_mbs,
-                            chroma_qp_offset, cross, workspace)
+    arrs = band_arrays(bufs, ("arrays", layout, whole_conceal),
+                       range(n_bands), w_mbs, h_mbs, n_bands, cross)
+    return _bands_into_slot([arrs[k] for k in range(n_bands)], ref_y, ref_c,
+                            slots, w_mbs, h_mbs, chroma_qp_offset, cross,
+                            workspace)
+
+
+def mesh_runs(mesh: Sequence[torch.device]) -> List[tuple]:
+    """The mesh's runs of consecutive bands on one device, in band order:
+    [(device, (band, ...)), ...]; one run a device on a mesh of distinct
+    devices or of contiguous bands."""
+    runs = []
+    for k, dev in enumerate(mesh):
+        if runs and runs[-1][0] == dev:
+            runs[-1] = (dev, runs[-1][1] + (k,))
+        else:
+            runs.append((dev, (k,)))
+    return runs
 
 
 class BandSlicer:
@@ -321,31 +456,45 @@ class BandSlicer:
     the reference stacks on every distinct device; any other picture is
     declined (None) to the decoder's own per-picture step.
 
-    A mesh whose bands all lie on one device runs the band step
-    (``decode_band_picture``, or ``decode_band_arrays`` in the host-array
-    form) as the JAX package jits it: on a card one CUDA graph per key
-    (``core.graphs.GroupGraphs.picture``, kind "band" or "band_arrays";
-    key: n_bands, cross, the JAX static arguments, the device and the
-    stacks), on the decoder's pooled stack set, so the graphs outlive the
-    decoder; a key's first picture for the set's owner runs the step
-    eagerly, its second is captured and replayed, the rest replay. A
-    capture or replay that fails raises. A mesh over more than one device
-    keeps the eager step (``decode_bands``, then each device's stacks):
-    the decoder's stacks serve mesh[0], and every other distinct device
-    keeps a copy, refreshed in full whenever a picture reached the stacks
-    without this slicer (a declined or concealed picture) or the stacks
-    were made anew.
+    As the JAX package jits its band step per key, the step runs as CUDA
+    graphs per key on a card, captured at a key's second picture for the
+    set's owner and replayed from then on; a key's first picture runs the
+    same bodies eagerly, as does every picture on the CPU. A capture or
+    replay that fails raises. The graphs live on the decoder's pooled
+    stack set, so they outlive the decoder.
+     - A mesh whose bands all lie on one device: the band step
+       (``decode_band_picture``, or ``decode_band_arrays`` in the
+       host-array form) as one graph (``core.graphs.GroupGraphs.picture``,
+       kind "band" or "band_arrays"; key: n_bands, cross, the JAX static
+       arguments, the device and the stacks).
+     - A mesh over several devices (``core.graphs.MeshGraph``, kind
+       "band_mesh"; key: the same, each run of the mesh's devices and
+       bands, every device's stacks): a graph per run of consecutive
+       bands on one card (``mesh_runs``: one a card on a mesh of distinct
+       cards; ``decode_band_run``: (a) and the chain (b), the halo a peer
+       copy from the previous card after an event its graph records) and
+       a gather graph per card (``gather_into_slot``: (c), every other
+       card's bands by peer copies, the picture into that card's stacks).
+       Peer access between every pair of its cards is checked and enabled
+       here, and its absence raises. The decoder's stacks serve mesh[0];
+       every other distinct device has a mirror, a stack set leased from
+       the pool beside the decoder's and given back with it, refreshed in
+       place (so a graph's addresses hold) whenever a picture reached the
+       stacks without this slicer (a declined or concealed picture) or
+       the stacks were leased anew.
 
     stats counts "pictures" (band-sharded), "declined", "cross" (of the
     pictures, those with an idc-0 slice: the chained deblock),
     "host_arrays" (of the pictures, those in the host-array form) and
     "routes" (the pictures by route: "eager", "captured", "replayed" on a
-    one-device mesh, all eager on the CPU; "eager_multi_card" on a mesh
-    over more than one device).
+    one-device mesh; "multi_card_eager", "multi_card_captured",
+    "multi_card_replayed" on a mesh over several devices; all eager on
+    the CPU).
 
     Its decoder leases its stacks under the pool tag ``stack_affinity``
-    ("band"), apart from decoders of other kinds: a later band decoder of
-    the same geometry gets back a set that holds the band graphs."""
+    ("band"), apart from decoders of other kinds, and the mirrors under
+    (its decoder's tag, "mirror"): a later band decoder of the same
+    geometry and mesh gets back the sets that hold its band graphs."""
 
     stack_affinity = "band"
 
@@ -356,14 +505,13 @@ class BandSlicer:
         self.mesh = list(mesh)
         self.n_bands = len(self.mesh)
         self.pack = pack
+        PEER.enable(_distinct(self.mesh))
         self.stats = stats if stats is not None else {}
         for k in ("pictures", "declined", "cross", "host_arrays"):
             self.stats.setdefault(k, 0)
-        self.stats.setdefault("routes", dict.fromkeys(
-            ("eager", "captured", "replayed", "eager_multi_card"), 0))
+        self.stats.setdefault("routes", dict.fromkeys(ROUTES, 0))
         self.cache = cache if cache is not None else {}
-        self._mirrors: Dict[torch.device, tuple] = {}
-        self._synced = None      # (stacks, next picture number) when fresh
+        self._synced = None      # (set, mirrors, next picture) when fresh
         self._progress: Dict[torch.device, torch.Tensor] = {}
 
     def _workspace(self, dev: torch.device, rows: int) -> torch.Tensor:
@@ -376,15 +524,31 @@ class BandSlicer:
         return ws
 
     def _stacks(self, dec) -> tuple:
+        """({device: (stack_y, stack_c)} for every distinct device of the
+        mesh, the picture's slot): the decoder's stacks for mesh[0], a
+        mirror leased beside them (``StackSet.companions``) for every
+        other device, refreshed by copies into its own storage unless
+        this slicer's last picture left them equal."""
         sy, sc, slot = dec.reference_stacks()
+        owner = dec.stack_set
+        mirrors = owner.companions
+        fresh = self._synced is not None and self._synced[0] is owner and \
+            self._synced[1] is mirrors and self._synced[2] == dec.pic_number
+        W, H, R = owner.geometry
         stacks = {self.mesh[0]: (sy, sc)}
-        fresh = self._synced is not None and self._synced[0] is sy and \
-            self._synced[1] == dec.pic_number
         for dev in _distinct(self.mesh)[1:]:
-            if not fresh or dev not in self._mirrors:
-                self._mirrors[dev] = (sy.to(dev, copy=True),
-                                      sc.to(dev, copy=True))
-            stacks[dev] = self._mirrors[dev]
+            m = mirrors.get(dev)
+            if m is None:
+                m = mirrors[dev] = GR.STACK_POOL.lease(
+                    dev, W, H, R, affinity=(dec.stack_affinity, "mirror"))
+                fresh = False
+            m.note_stream()
+            stacks[dev] = (m.stack_y, m.stack_c)
+        if not fresh:
+            for dev, (my, mc) in list(stacks.items())[1:]:
+                my.copy_(sy)
+                mc.copy_(sc)
+        self._synced = (owner, mirrors, None)   # fresh again once it steps
         return stacks, slot
 
     def _scratch(self, lay):
@@ -402,40 +566,42 @@ class BandSlicer:
         w, h = sps.width_mbs, sps.height_mbs
         ci, co = pps.constrained_intra_pred, pps.chroma_qp_index_offset
         cross = any(sp.disable_deblocking_idc == 0 for sp in pic.slice_params)
-        res = stacked = lay = None
+        res = None
         if self.pack == "v2":
             lay = PK.get_packed_layout_v2(w, h)
             res = PK.pack_picture_v2(pic, lay, self._scratch(lay))
-        if res is None:
+        if res is not None:
+            buf, bk = res
+            spec = ("v2", lay, bk, ci, co)
+        else:
             make = band_host_arrays_ghost if cross else band_host_arrays
             stacked = make(pic, n, co, ci)
+            layout = PK.host_arrays_layout(stacked)
+            buf = PK.pack_host_arrays(stacked, layout)
+            spec = ("arrays", layout, bool(stacked["whole_conceal"][0]))
             self.stats["host_arrays"] += 1
         if len(_distinct(self.mesh)) > 1:
-            frame = self._multi_card(dec, w, h, cross, co, res, lay, ci,
-                                     stacked)
-        elif res is not None:
-            buf, bk = res
+            frame = self._multi_card(dec, spec, buf, w, h, cross, co)
+        elif spec[0] == "v2":
             frame = self._one_device(
-                dec, "band", (n, cross, lay, bk, ci, co), buf, w, h,
+                dec, "band", (n, cross, lay, bk, ci, co), buf, h,
                 functools.partial(decode_band_picture, n_bands=n,
                                   cross=cross, lay=lay, bk=bk,
                                   constrained_intra=ci, chroma_qp_offset=co))
         else:
-            layout = PK.host_arrays_layout(stacked)
-            conceal = bool(stacked["whole_conceal"][0])
             frame = self._one_device(
-                dec, "band_arrays", (n, cross, layout, w, h, co, conceal),
-                PK.pack_host_arrays(stacked, layout), w, h,
+                dec, "band_arrays", (n, cross, layout, w, h, co, spec[2]),
+                buf, h,
                 functools.partial(decode_band_arrays, layout=layout,
                                   n_bands=n, cross=cross, w_mbs=w, h_mbs=h,
                                   chroma_qp_offset=co,
-                                  whole_conceal=conceal))
+                                  whole_conceal=spec[2]))
         self.stats["pictures"] += 1
         self.stats["cross"] += int(cross)
         return frame
 
     def _one_device(self, dec, kind: str, args: tuple, buf: np.ndarray,
-                    w: int, h: int, body) -> RC.TorchFrame:
+                    h: int, body) -> RC.TorchFrame:
         """The band step of a one-device mesh on the decoder's stack set
         (``core.graphs.picture_step``): the graph of its key (kind, args:
         the step's static arguments, which `body` has bound) on a card;
@@ -449,49 +615,31 @@ class BandSlicer:
                                    sc, rows,
                                    self._workspace(self.mesh[0], rows))
 
-    def _multi_card(self, dec, w: int, h: int, cross: bool, co: int, res,
-                    lay, ci: bool, stacked: dict) -> RC.TorchFrame:
-        """The eager band step over a mesh of several devices: the v2
-        buffer (res = (buf, bk) of layout lay) sent once to each distinct
-        device, unpacked there and cut per band, or else each band's host
-        arrays (`stacked`) sent to its device; then ``decode_bands`` and
-        the picture into every device's stacks."""
-        hb = h // self.n_bands
+    def _multi_card(self, dec, spec: tuple, buf: np.ndarray, w: int, h: int,
+                    cross: bool, co: int) -> RC.TorchFrame:
+        """The band step over a mesh of several devices on the decoder's
+        stacks and the mirrors (``core.graphs.mesh_step``): the graphs of
+        its key on cards; the same bodies eagerly for a key's first
+        picture for the set's owner, and on the CPU, with this slicer's
+        counters. buf: the picture's input as ``band_arrays`` takes it
+        (spec), u8 [size] on the host, sent once to each device."""
+        n = self.n_bands
         stacks, slot = self._stacks(dec)
-        if res is not None:
-            host = torch.from_numpy(res[0])
-            whole = {dev: PK.unpack_arrs_v2(host.to(dev), lay, res[1], ci,
-                                            co)
-                     for dev in _distinct(self.mesh)}
-            cut = cut_band_ghost if cross else cut_band
-            bands = [cut(whole[dev], k, w, hb)
-                     for k, dev in enumerate(self.mesh)]
-        else:
-            bands = [_band_to(stacked, k, dev)
-                     for k, dev in enumerate(self.mesh)]
-        workspace = {dev: self._workspace(dev, hb + 1)
-                     for dev in _distinct(self.mesh)}
-        frame = None
-        for dev, yuv in decode_bands(bands, self.mesh, stacks, w, h, co,
-                                     cross, workspace).items():
-            f = RC.TorchFrame(yuv, 16 * w, 16 * h)
-            RC.update_stack_slot(*stacks[dev], slot, f)
-            if dev == self.mesh[0]:
-                frame = f
-        self.stats["routes"]["eager_multi_card"] += 1
-        self._synced = (stacks[self.mesh[0]][0], dec.pic_number + 1)
+        rows = h // n + 1
+        run = functools.partial(decode_band_run, spec=spec, n_bands=n,
+                                cross=cross, w_mbs=w, h_mbs=h,
+                                chroma_qp_offset=co)
+        gather = functools.partial(gather_into_slot, w_mbs=w, h_mbs=h,
+                                   cross=cross)
+        graphs = dec.group_graphs
+        with graphs.counted(self.stats["routes"], "multi_card_"):
+            frame = GR.mesh_step(
+                graphs, (spec, n, cross, w, h, co), mesh_runs(self.mesh),
+                stacks, buf, slot, rows, run, gather,
+                {dev: self._workspace(dev, rows) for dev in stacks})
+        owner = dec.stack_set
+        self._synced = (owner, owner.companions, dec.pic_number + 1)
         return frame
-
-
-def _band_to(stacked: Dict[str, np.ndarray], k: int,
-             dev: torch.device) -> Dict[str, torch.Tensor]:
-    """Band k of stacked host arrays on `dev`; ``whole_conceal`` stays on
-    the host, where ``decode_picture`` reads it without a sync."""
-    arrs = tables_from_numpy({key: v[k] for key, v in stacked.items()
-                              if key != "whole_conceal"}, dev)
-    arrs["whole_conceal"] = torch.from_numpy(
-        np.array(stacked["whole_conceal"][k]))
-    return arrs
 
 
 def decode_stream_sliced(data: bytes, mesh="cuda", n_bands: int = 4,

@@ -117,7 +117,7 @@ failure is caught):
      rows without the ghost row beside it; frames/s of each band path
      beside the single-card decoder (median of 3 passes, which capture
      nothing). One card shows the band machinery, not cross-card copies
-     or scaling.
+     or scaling (phase 16 runs over distinct cards when there are two).
  12. a third-party encoder and the last tools, at full width: (a) the
      committed x264 1920x1080 stream (broadway_tpu_torch/tools/data/, 8
      pictures, 4 slices, 3 references, cropped from 1088) through
@@ -159,6 +159,26 @@ failure is caught):
      of each replay against each eager enqueue (both timed on the pump's
      worker), the pool's sets and bytes; beside them phase 7's launches
      per picture and phase 12 (d)'s launches per story run.
+ 15. the multi-process path on the card (parallel.multihost): two ranks,
+     each a process with its own time limit, join one job with
+     init_multihost's default backend (NCCL); each takes the card that
+     rank_cards gives it (both share the card on a one-card machine; cards
+     0 and 1 with two or more) and decodes its share of phase 9's three
+     short 1080p streams (2 pictures each); the exchange runs over a gloo
+     group of the job; every stream byte-equal, on both ranks, to the
+     single-card decoder; world size, each rank's card and the backends
+     printed. With four cards or more, once more with sp_bands=2 on
+     phase 11's (a) and (b): each rank's bands over its own two cards.
+ 16. band sharding over distinct cards, with two cards or more (one band
+     a card: cards 0-3 with four, else 0-1): phase 11's (a) and (b)
+     through decode_stream_sliced twice, each frame byte-equal to the
+     single-card decoder, the band step as a CUDA graph per card and a
+     gather graph per card (core.graphs.MeshGraph: the halo chain and the
+     gather as peer copies ordered by events), routes as counted on the
+     host (multi_card_eager / _captured / _replayed; the second call
+     capturing nothing), K1, K2 and K3 once a band and picture, host ms by
+     route and by card, each capture by card. With one card it prints one
+     line saying that it did not run, and why.
 The last lines of stdout: the scaling table (JSON), the kernels' JSON
 record, the nvidia-smi name/power-limit line, and {"ok": true,
 "device": ...}.
@@ -1993,7 +2013,9 @@ def band_keys(data: bytes) -> list:
 
 
 def band_routes(keys, graphs_exist: bool) -> dict:
-    return dict(expected_routes(keys, graphs_exist), eager_multi_card=0)
+    """A one-card mesh's band routes: no step of a mesh over several."""
+    return dict(expected_routes(keys, graphs_exist), multi_card_eager=0,
+                multi_card_captured=0, multi_card_replayed=0)
 
 
 def band_phase(streams_abc: dict, want_c, pool, device, smi: str,
@@ -2152,6 +2174,187 @@ def band_phase(streams_abc: dict, want_c, pool, device, smi: str,
         log(f"  ({lab}) median of {passes}: band path {rec['band_fps']:.2f} "
             f"frames/s, single-card {rec['single_fps']:.2f} ({smi})")
     log(f"  phase 11 took {time.perf_counter() - t0:.1f} s")
+    out["singles"] = singles        # phases 15 and 16 hold to them
+    return out
+
+
+MP_TIMEOUT_S = 300           # phase 15: each rank's own time limit
+_RANK = r"""
+import json, pickle, sys
+rank, port, path, sp = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                        int(sys.argv[4]))
+sys.path.insert(0, %(repo)r)
+import torch
+import torch.distributed as dist
+from broadway_tpu_torch.parallel import multihost as MH
+MH.init_multihost(f"localhost:{port}", 2, rank)      # backend "nccl"
+card = torch.cuda.current_device()
+with open(path, "rb") as f:
+    case = pickle.load(f)
+backends, gather = [], dist.all_gather_object
+
+def spy(out, obj, group=None):
+    backends.append(dist.get_backend(group))
+    return gather(out, obj, group=group)
+
+dist.all_gather_object = spy
+got = MH.decode_streams_multihost(case["datas"], sp_bands=sp,
+                                  parallel_slices=8)
+ok = got == case["wants"]
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "broadway_tpu"))
+print(json.dumps({"rank": rank, "world": dist.get_world_size(),
+                  "card": card, "cards": [str(d) for d in
+                                          MH.local_devices("cuda", sp)],
+                  "backend": dist.get_backend(), "exchange": backends,
+                  "byte_equal": ok, "jax_modules": bad}), flush=True)
+dist.destroy_process_group()
+sys.exit(0 if ok and not bad else 1)
+"""
+
+
+def multiprocess_phase(datas, wants, sp_bands: int = 1) -> dict:
+    """Phase 15: the multi-process path on the card(s): two ranks (this
+    script's Python in two processes, each with its own time limit) join
+    one job with init_multihost's default backend (NCCL), each on the
+    card rank_cards gives it (two ranks share a card when there is one),
+    decode their share of `datas` with decode_streams_multihost
+    (sp_bands bands a picture over the rank's cards), and the exchange
+    over a gloo group gives both every stream: byte-equal to `wants`, the
+    single-card decoder's frames. Returns each rank's report."""
+    import pickle
+    import socket
+    import tempfile
+
+    import torch
+
+    from broadway_tpu_torch.parallel.multihost import rank_cards
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        path = os.path.join(tmp, "case.pkl")
+        with open(path, "wb") as f:
+            pickle.dump({"datas": list(datas), "wants": wants}, f)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _RANK % {"repo": REPO}, str(r), str(port),
+             path, str(sp_bands)], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, env=env, cwd=tmp)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MP_TIMEOUT_S))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    reports = []
+    count = torch.cuda.device_count()
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                 f"{so[-2000:]}\n{se[-4000:]}")
+        rep = json.loads(so.strip().splitlines()[-1])
+        want_cards = [f"cuda:{i}" for i in rank_cards(r, 2, count,
+                                                      sp_bands)]
+        if rep["card"] != rank_cards(r, 2, count)[0] or \
+                rep["cards"] != want_cards or rep["exchange"] != ["gloo"]:
+            raise AssertionError(f"rank {r}: {rep}, expected card "
+                                 f"{rank_cards(r, 2, count)[0]}, cards "
+                                 f"{want_cards}, exchange over gloo")
+        reports.append(rep)
+        log(f"    rank {r} of {rep['world']}: card cuda:{rep['card']}, band "
+            f"cards {rep['cards']}, job backend {rep['backend']}, exchange "
+            f"{rep['exchange']}; {len(datas)} streams byte-equal to the "
+            "single-card decoder")
+    sec = time.perf_counter() - t0
+    log(f"    phase 15 (sp_bands={sp_bands}) took {sec:.1f} s")
+    return {"ranks": reports, "sp_bands": sp_bands, "streams": len(datas),
+            "seconds": sec}
+
+
+def multicard_phase(streams_ab: dict, singles: dict, smi: str) -> dict:
+    """Phase 16, with two cards or more: phase 11's streams (a) and (b)
+    over a mesh of distinct cards (cards 0-3 with four or more, else 0-1;
+    one band a card), twice: every frame byte-equal to the single-card
+    decoder (`singles`), the band step as a graph per card (and a gather
+    graph per card) on the decoders' pooled sets and mirrors, its routes
+    those of the capture policy on the keys packed on the host (the
+    second call capturing nothing), K1, K2 and K3 once a band and
+    picture; host ms by route and by card, each capture by card. With
+    one card it reports that it did not run."""
+    import torch
+
+    from broadway_tpu_torch.core import graphs as GR
+    from broadway_tpu_torch.ops.gpu import wavefront_kernels as KW
+    from broadway_tpu_torch.parallel import slices as SL
+    from broadway_tpu_torch.tools import bandcheck
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"    not run: torch sees {count} card; a mesh of distinct cards "
+            "needs two or more")
+        return {"ran": False, "cards": count}
+    t0 = time.perf_counter()
+    n = 4 if count >= 4 else 2        # the streams' slices align with both
+    mesh = [torch.device("cuda", i) for i in range(n)]
+    out = {"ran": True, "cards": count, "mesh": [str(d) for d in mesh],
+           "card": smi, "streams": {}}
+    GR.STACK_POOL.clear()
+    for lab, data in streams_ab.items():
+        keys = band_keys(data)
+        out["streams"][lab] = calls = []
+        for k in range(2):
+            st = {}
+            reset_launch_counts()
+            with bandcheck.step_times() as t:
+                got = SL.decode_stream_sliced(data, mesh, n,
+                                              parallel_slices=8, stats=st)
+            for d in mesh:
+                torch.cuda.synchronize(d)
+            counts = launch_counts()
+            counts_dev = {"K2_intra": KW.device_launches(KW.INTRA),
+                          "K3_deblock": KW.device_launches(KW.DEBLOCK)}
+            if got != singles[lab]:
+                raise AssertionError(
+                    f"mesh of {n} cards, stream ({lab}), call {k + 1}: "
+                    f"{_first_difference(got, singles[lab])} from the "
+                    "single-card decoder")
+            want = dict.fromkeys(("eager", "captured", "replayed"), 0)
+            want.update({"multi_card_" + r: v for r, v in
+                         expected_routes(keys, k > 0).items()})
+            if st["routes"] != want:
+                raise AssertionError(f"mesh, stream ({lab}), call {k + 1}: "
+                                     f"routes {st['routes']}, the capture "
+                                     f"policy gives {want}")
+            _require_one_launch_per_picture(
+                f"mesh ({lab}, {n} a picture)", counts, n * len(got))
+            _require_one_launch_per_picture(f"mesh ({lab}, device)",
+                                            counts_dev, n * len(got))
+            calls.append({"routes": st["routes"], "launches": counts,
+                          "device_launches": counts_dev,
+                          "step_host_ms": t["host_ms"],
+                          "step_card_ms": t["card_ms"]})
+            log(f"    ({lab}) over {n} cards, call {k + 1}: {len(got)} "
+                f"frames byte-equal to the single-card decoder; routes "
+                f"{st['routes']}; launches {counts}, device {counts_dev}; "
+                f"host ms { {r: _rounded(v) for r, v in t['host_ms'].items()} }")
+    out["captures"] = [
+        {"capture_ms": g.capture_ms, "capture_parts_ms": g.capture_parts,
+         "capture_card_ms": g.card_capture_ms,
+         "pool_card_bytes": g.card_pool_bytes, "replays": g.replays}
+        for s in GR.STACK_POOL._free.values() for st in s
+        for g in st.graphs.graphs() if g.kind == "band_mesh"]
+    for c in out["captures"]:
+        log(f"    captured a band_mesh graph set: {c['capture_ms']:.3f} ms "
+            f"({c['capture_parts_ms']}), by card {c['capture_card_ms']}, "
+            f"pool bytes by card {c['pool_card_bytes']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"    phase 16 took {out['seconds']:.1f} s ({smi}; {count} cards)")
     return out
 
 
@@ -2597,6 +2800,21 @@ def run_phases(torch, smi: str, pool) -> int:
     log(f"    phase 7: device launches per picture {per_pic}; phase 12 "
         f"(d): launches per story run "
         f"{step_graphs['phase12_story_launches']}")
+
+    log("[15] multi-process: two ranks, each on the card it picks, the "
+        "exchange over gloo")
+    short = datas[1:]
+    multiproc = {"one_band": multiprocess_phase(
+        short, [[f.tobytes() for f in decode_port(d, "cuda")[0]]
+                for d in short])}
+    if torch.cuda.device_count() >= 4:
+        ab = [band_streams["a"], band_streams["b"]]
+        multiproc["two_bands"] = multiprocess_phase(
+            ab, [bands["singles"][lab] for lab in ("a", "b")], sp_bands=2)
+
+    log("[16] band sharding over distinct cards")
+    multicard = multicard_phase({lab: band_streams[lab] for lab in "ab"},
+                                bands["singles"], smi)
     check_no_jax()
     log("    neither jax nor broadway_tpu in sys.modules")
 
@@ -2691,7 +2909,9 @@ def run_phases(torch, smi: str, pool) -> int:
               "step": step, "step_graphs": step_graphs,
               "lockstep": lockstep, "pack_modes": pack_modes,
               "groups": groups,
-              "bands": {k: v for k, v in bands.items() if k != "kernels"},
+              "bands": {k: v for k, v in bands.items()
+                        if k not in ("kernels", "singles")},
+              "multiprocess": multiproc, "multicard": multicard,
               "pump": {"x264": tools["x264"]["pump"],
                        "realistic": tools["realistic_pump"]},
               "x264": {k: v for k, v in tools["x264"].items()

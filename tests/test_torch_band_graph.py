@@ -72,6 +72,9 @@ except ImportError:
     jax = None
 
 W_MBS, H_MBS, BANDS = 12, 8, 4
+# the routes of a mesh over several devices, none on a one-device mesh
+NO_MESH = dict.fromkeys(("multi_card_eager", "multi_card_captured",
+                         "multi_card_replayed"), 0)
 
 
 @pytest.fixture
@@ -151,6 +154,16 @@ def _band_keys(data, pack):
 
 
 # ----------------------------------------------------------------- bodies
+def _band_to(stacked, k):
+    """Band k of stacked host arrays as tensors, whole_conceal a 0-dim
+    tensor on the host."""
+    arrs = tables_from_numpy({key: v[k] for key, v in stacked.items()
+                              if key != "whole_conceal"})
+    arrs["whole_conceal"] = torch.from_numpy(
+        np.array(stacked["whole_conceal"][k]))
+    return arrs
+
+
 def _checking_strategy(pack, checked):
     """A recon_strategy that runs each picture's band body on the
     decoder's stacks and holds it against the eager decode_bands +
@@ -175,7 +188,7 @@ def _checking_strategy(pack, checked):
         else:
             make = SL.band_host_arrays_ghost if cross else SL.band_host_arrays
             stacked = make(pic, BANDS, co, ci)
-            bands = [SL._band_to(stacked, k, mesh[k]) for k in range(BANDS)]
+            bands = [_band_to(stacked, k) for k in range(BANDS)]
             layout = TPK.host_arrays_layout(stacked)
             yuv = SL.decode_band_arrays(
                 torch.from_numpy(TPK.pack_host_arrays(stacked, layout)[None]),
@@ -302,7 +315,10 @@ def test_host_arrays_buffer_round_trips():
 
 
 def _body_case(name):
-    """(body, its inputs) for one picture of each form."""
+    """(body, its inputs) for one picture of each form. The bodies of a
+    mesh over several cards: a run of bands 1 and 2, its halo (band 0's
+    final planes) and the gather's final planes all views of the stacks,
+    so that their reads are followed as the inputs' are."""
     idc = 0 if name.endswith("idc0") else 2
     data = _band(idc, n_frames=2, seed=1420)
     pic, ci, co, R = _parsed(data)[1]             # a P picture
@@ -310,7 +326,23 @@ def _body_case(name):
     sy = torch.zeros((R, 16 * h, 16 * w), dtype=torch.uint8)
     sc = torch.zeros((R, 2, 8 * h, 8 * w), dtype=torch.uint8)
     slots = torch.tensor([1])
-    if name.startswith("band_v2"):
+    if name.startswith("mesh"):
+        lay = TPK.get_packed_layout_v2(w, h)
+        buf, bk = TPK.pack_picture_v2(pic, lay, TPK.PackScratchV2(lay))
+        cross, rows = idc == 0, (h // BANDS + (idc == 0))
+        if name.startswith("mesh_run"):
+            def body(bufs, ref_y, ref_c, slots, workspace):
+                return SL.decode_band_run(
+                    bufs, ref_y, ref_c, (1, 2), ("v2", lay, bk, ci, co),
+                    BANDS, cross, w, h, co, halo=(ref_y[0], ref_c[0]),
+                    workspace=workspace)[-1][0]
+        else:
+            def body(bufs, ref_y, ref_c, slots, workspace):
+                finals = [(ref_y[k % R, :16 * rows], ref_c[k % R, :, :8 * rows])
+                          for k in range(BANDS)]
+                return SL.gather_into_slot(finals, ref_y, ref_c, slots, w, h,
+                                           cross)
+    elif name.startswith("band_v2"):
         lay = TPK.get_packed_layout_v2(w, h)
         buf, bk = TPK.pack_picture_v2(pic, lay, TPK.PackScratchV2(lay))
         body = functools.partial(SL.decode_band_picture, n_bands=BANDS,
@@ -341,7 +373,9 @@ def _body_case(name):
 
 
 @pytest.mark.parametrize("name", ["band_v2_idc0", "band_v2_idc2",
-                                  "band_arrays_idc0", "v1", "unpacked"])
+                                  "band_arrays_idc0", "v1", "unpacked",
+                                  "mesh_run_idc0", "mesh_run_idc2",
+                                  "mesh_gather_idc0"])
 def test_bodies_read_no_input_on_the_host(name, monkeypatch):
     """What a CUDA graph captures may not read a device value on the host,
     nor make a shape of one. Under a dispatch mode that follows which
@@ -434,7 +468,7 @@ def test_band_routes_follow_the_policy_and_outlive_the_call(fake_card,
         assert SL.decode_stream_sliced(data, "cpu", BANDS, pack=pack,
                                        stats=st) == want
         assert st["routes"] == dict(_routes(keys, graphs_exist),
-                                    eager_multi_card=0)
+                                    **NO_MESH)
         routes.append(st["routes"])
     assert len(FakeGraph.made) == routes[0]["captured"] >= 1
     assert routes[1]["captured"] == 0 and routes[1]["replayed"] >= 1
@@ -483,7 +517,7 @@ def test_sliced_dp_routes_per_stream_and_second_call_captures_nothing(
         assert SL.decode_streams_sliced_dp(datas, [["cpu"] * 2] * 2, 2,
                                            stats=st) == wants
         assert [s["routes"] for s in st["streams"]] == \
-            [dict(_routes(k, graphs_exist), eager_multi_card=0)
+            [dict(_routes(k, graphs_exist), **NO_MESH)
              for k in keys]
         assert st["rounds"] == 4
     assert len(FakeGraph.made) == sum(_routes(k)["captured"] for k in keys)
@@ -524,7 +558,7 @@ def test_sliced_dp_second_call_captures_nothing_whatever_the_lease_order(
         assert SL.decode_streams_sliced_dp(datas, [["cpu"] * 2] * 2, 2,
                                            stats=st) == wants
         assert [s["routes"] for s in st["streams"]] == \
-            [dict(_routes(k, graphs_exist), eager_multi_card=0)
+            [dict(_routes(k, graphs_exist), **NO_MESH)
              for k in keys]
         assert [s["declined"] for s in st["streams"]] == \
             [int(order == "first_picture_declined"), 0]
@@ -569,7 +603,7 @@ def test_band_decoder_gets_back_its_set_after_other_decoders(fake_card,
     mesh = SL.make_band_mesh("cpu", BANDS)
     st = {}
     assert SL.decode_stream_sliced(data, mesh, BANDS, stats=st) == want
-    assert st["routes"] == dict(_routes(keys), eager_multi_card=0)
+    assert st["routes"] == dict(_routes(keys), **NO_MESH)
     for _ in range(2):
         assert _frames(Decoder(device="cpu"), data) == want
         assert SL.decode_streams_sliced_dp([data, data], [["cpu"] * 2] * 2,
@@ -582,7 +616,7 @@ def test_band_decoder_gets_back_its_set_after_other_decoders(fake_card,
     dec = Decoder(device="cpu", recon_strategy=SL.BandSlicer(mesh, stats=st))
     assert dec.stack_affinity == "band"
     assert _frames(dec, data) == want
-    assert st["routes"] == dict(_routes(keys, True), eager_multi_card=0)
+    assert st["routes"] == dict(_routes(keys, True), **NO_MESH)
     assert fake_card.stats()["sets"] == 4     # default, band, two dp
 
 
@@ -619,15 +653,17 @@ def test_band_decode_resumed_from_load_state(fake_card):
 
 
 def test_mesh_over_two_devices_counts_eager_multi_card():
-    """cpu and cpu:0 are two device objects: the mesh keeps the eager band
-    step, counted as its own route."""
+    """cpu and cpu:0 are two device objects: the mesh runs the band step
+    of a mesh over several devices, eagerly on the CPU, counted as its
+    own route (multi_card_eager; eager_multi_card until the mesh had
+    graphs on cards)."""
     data = _band(2, n_frames=3, seed=1470)
     st = {}
     got = SL.decode_stream_sliced(data, ["cpu", "cpu:0"] * 2, BANDS,
                                   stats=st)
     assert got == _frames(Decoder(device="cpu", recon="numpy"), data)
-    assert st["routes"] == {"eager": 0, "captured": 0, "replayed": 0,
-                            "eager_multi_card": 3}
+    assert st["routes"] == dict(NO_MESH, eager=0, captured=0, replayed=0,
+                                multi_card_eager=3)
 
 
 def _v1_keys(data):
@@ -790,7 +826,7 @@ def test_band_graphs_on_the_card(card, idc, pack):
         assert [a - b for a, b in zip(_launches(), before)] == \
             [BANDS * len(want)] * 5
         assert st["routes"] == dict(_routes(keys, graphs_exist),
-                                    eager_multi_card=0)
+                                    **NO_MESH)
 
 
 @pytest.mark.cuda

@@ -106,7 +106,8 @@ def test_sliced_decode_equals_jax_and_single(name, pack, jax_ref):
     assert st == {"pictures": n, "declined": n_declined, "cross": n_cross,
                   "host_arrays": 0 if pack == "v2" else n,
                   "routes": {"eager": n, "captured": 0, "replayed": 0,
-                             "eager_multi_card": 0}}
+                             "multi_card_eager": 0, "multi_card_captured": 0,
+                             "multi_card_replayed": 0}}
 
 
 def test_sliced_decode_runs_no_kernel_on_the_cpu():
@@ -124,7 +125,10 @@ def test_mirror_stacks_follow_declines(decline, monkeypatch):
     so the second keeps its own copy of the stacks, as another card
     would): bands 1 and 3 predict from that copy. Declined pictures reach
     only the decoder's stacks, and the copy is refreshed before the next
-    band-sharded picture; 5 pictures, so that a stale slot would show."""
+    band-sharded picture; 5 pictures, so that a stale slot would show.
+    The copy is a stack set leased beside the decoder's and refreshed in
+    place: its storage (which a card's graphs bake in) never changes,
+    and its bytes equal the decoder's stacks at every band picture."""
     data = streams.banded_stream(n_bands=4, height_mbs=8, n_frames=5,
                                  seed=706, deblock_idc=0)[0]
     want = _frames(Decoder(device="cpu", recon="numpy"), data)
@@ -137,11 +141,23 @@ def test_mirror_stacks_follow_declines(decline, monkeypatch):
             return calls[0] % 2 == 1 and aligned(pic, n)
 
         monkeypatch.setattr(SL, "_bands_aligned", flaky)
+    ptrs, stacks = set(), SL.BandSlicer._stacks
+
+    def spy(self, dec):
+        got = stacks(self, dec)
+        (sy, sc), (my, mc) = got[0].values()
+        assert torch.equal(sy, my) and torch.equal(sc, mc)
+        ptrs.add((my.untyped_storage().data_ptr(),
+                  mc.untyped_storage().data_ptr()))
+        return got
+
+    monkeypatch.setattr(SL.BandSlicer, "_stacks", spy)
     mesh = ["cpu", "cpu:0", "cpu", "cpu:0"]
     st = {}
     assert SL.decode_stream_sliced(data, mesh, 4, stats=st) == want
     assert st["declined"] == (2 if decline == "every_other" else 0)
     assert st["pictures"] == 5 - st["declined"]
+    assert len(ptrs) == 1
 
 
 def test_sliced_dp_equals_jax_on_a_2x2_grid(jax_ref):
@@ -498,3 +514,9 @@ def test_bandcheck_tool_on_cpu_devices(capsys):
         assert r["streams"]["a"]["stats"]["cross"] == 2
         assert r["streams"]["b"]["stats"]["pictures"] == 2
         assert r["dp_grid"]
+    # the routes and host ms by route; a mesh of two devices by device too
+    mesh, one = (r["streams"]["a"] for r in runs)
+    assert mesh["routes"]["multi_card_eager"] == 2 == one["routes"]["eager"]
+    assert len(mesh["step_host_ms"]["eager"]) == 2
+    assert sorted(mesh["step_card_ms"]["eager"]) == ["cpu", "cpu:0"]
+    assert "one_card_band_fps" in mesh and "one_card_band_fps" not in one
