@@ -22,6 +22,28 @@ the comparison with the reference.
 The OMP and torch thread counts are fixed to one before torch is
 imported; the client's only other threads are the decoder's slice
 threads and its dispatch pump.
+
+Over the window the client reads the process's CPU clock and every live
+Python thread's own (``thread_cpu_s``), split by what runs on the
+thread: ``feed`` (the main thread: the client's loop and ``decode_nal``),
+``pump`` (the dispatch pump, threads named ``bw-pump*``), ``slice``
+(every other Python thread: the decoder's slice pool) and ``runtime``
+(the rest of the process's CPU: the threads that Python did not start,
+the CUDA driver's and torch's, and any Python thread that ended inside
+the window). A thread that starts inside the window counts from 0.
+
+The program's own spans and counters come in through one method that
+the decoder may offer, ``trace_snapshot()``, which returns
+``{"counters": {name: number}, "spans": [[name, thread name, start ns,
+end ns], ...]}``: counters cumulative since the decoder was made; the
+spans that ended since the previous call, which the call removes; times
+on ``time.time_ns()``, the clock that the profiler's device timestamps
+are read on (``portbench/trace.py``). The client calls it as the window
+opens (the counters' base; its spans are dropped), right after its
+profiler starts (spans dropped) and after the window, and sends back
+``program``: the counters' deltas over the window and the spans clipped
+to its trace (none where it ran no profiler); null where the decoder has
+no such method.
 """
 
 from __future__ import annotations
@@ -31,7 +53,10 @@ import json
 import os
 import random
 import sys
+import threading
 import time
+
+from . import trace as TR
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "broadway_tpu")
 
@@ -58,6 +83,62 @@ def split_pictures(data: bytes, n_pictures: int) -> list:
     pics = [slices[k * per:(k + 1) * per] for k in range(n_pictures)]
     pics[0] = params + pics[0]
     return pics
+
+
+def thread_role(t: threading.Thread) -> str:
+    if t is threading.main_thread():
+        return "feed"
+    if t.name.startswith("bw-pump"):
+        return "pump"
+    return "slice"
+
+
+def cpu_clocks(threads_first: bool) -> tuple:
+    """(the process's CPU clock, {thread: its CPU clock}) in ns, of every
+    live Python thread. Read the threads first at a window's end and last
+    at its start: reading a running thread's clock brings its count up to
+    date, and the process's clock lags by what its other running threads
+    ran since their last tick, so the process's difference then holds
+    every thread's and the residual cannot fall below 0."""
+    def threads():
+        out = {}
+        for t in threading.enumerate():
+            try:
+                out[t] = time.clock_gettime_ns(
+                    time.pthread_getcpuclockid(t.ident))
+            except OSError:           # ended since it was listed
+                pass
+        return out
+
+    if threads_first:
+        th = threads()
+        return time.clock_gettime_ns(time.CLOCK_PROCESS_CPUTIME_ID), th
+    proc = time.clock_gettime_ns(time.CLOCK_PROCESS_CPUTIME_ID)
+    return proc, threads()
+
+
+def thread_cpu_s(start: tuple, end: tuple) -> dict:
+    """CPU seconds between two ``cpu_clocks`` readings by thread role;
+    ``runtime`` is the process's CPU less the three, so that the four add
+    up to it."""
+    (p0, c0), (p1, c1) = start, end
+    ns = {"feed": 0, "slice": 0, "pump": 0}
+    for t, c in c1.items():
+        ns[thread_role(t)] += c - c0.get(t, 0)
+    ns["runtime"] = p1 - p0 - sum(ns.values())
+    return {role: v / 1e9 for role, v in ns.items()}
+
+
+def program_delta(base, end, lo, hi):
+    """``program`` from two ``trace_snapshot()`` results: the counters'
+    deltas, and the spans clipped to [lo, hi] ns (none where lo is
+    None: no trace). None where the decoder offers no snapshot."""
+    if base is None or end is None:
+        return None
+    counters = {k: v - base["counters"].get(k, 0)
+                for k, v in end["counters"].items()}
+    spans = [] if lo is None else TR.clip_spans(end["spans"], lo, hi)
+    return {"counters": counters, "spans": spans}
 
 
 class Client:
@@ -167,6 +248,10 @@ class Client:
         g = self.dec.group_graphs
         return dict(g.counts) if g is not None else {}
 
+    def _snapshot(self):
+        snap = getattr(self.dec, "trace_snapshot", None)
+        return snap() if snap is not None else None
+
     def _profiler(self):
         torch = self.torch
         return torch.profiler.profile(
@@ -190,7 +275,9 @@ class Client:
         start_mark = self._mark()
         self.in_window = True
         routes0 = self.routes()
+        program0 = self._snapshot()
         cpu0 = os.times()
+        clocks0 = cpu_clocks(threads_first=False)
         trace_t0 = None
         n_pics = len(self.gops[0])
         while time.time() < t1:
@@ -200,10 +287,13 @@ class Client:
                 prof = self._profiler()
                 prof.start()
                 trace_t0 = time.time_ns()
+                self._snapshot()
             if not self.feed_picture(stop_at=t1):
                 break
+        clocks1 = cpu_clocks(threads_first=True)
         cpu1 = os.times()
         routes1 = self.routes()
+        program1 = self._snapshot()
         self.in_window = False
         self._drain()
         if self.cuda:
@@ -213,8 +303,11 @@ class Client:
         out = {"t0": t0,
                "cpu_s": (cpu1.user + cpu1.system) -
                         (cpu0.user + cpu0.system),
+               "thread_cpu_s": thread_cpu_s(clocks0, clocks1),
                "routes": {r: routes1.get(r, 0) - routes0.get(r, 0)
-                          for r in routes1}}
+                          for r in routes1},
+               "program": program_delta(program0, program1, trace_t0,
+                                        int(t1 * 1e9))}
         out["pictures"] = self._pictures(start_mark)
         out["trace"] = self._trace(prof, trace_t0, int(t1 * 1e9))
         return out
@@ -238,7 +331,6 @@ class Client:
     def _trace(self, prof, lo: int, hi: int):
         if prof is None:
             return None
-        from . import trace as TR
         ops = TR.device_ops(prof)
         busy = TR.merge(TR.clip([(s, e) for _, s, e in ops], lo, hi))
         by_name = {}

@@ -154,6 +154,14 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     and `root` are for the tests: the CPU, a client with a fault planted,
     a tree of tiny cells."""
     t_start = T_START if t_start is None else t_start
+    run = collect(name, seed, seconds, trace, device, client_argv, root)
+    return report(run, t_start)
+
+
+def collect(name: str, seed: int, seconds: float, trace: bool,
+            device: str, client_argv, root: str) -> dict:
+    """Start the cell's clients, open the window for all of them at once
+    and gather what they sent back: the run that ``report`` reads."""
     cell = lookup.workload(name, root)
     cfg = lookup.config(cell["config"], root)
     man = lookup.manifest(cell["config"], root)
@@ -187,21 +195,31 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     found = sorted({m for r in results for m in r["forbidden_modules"]})
     if found:
         raise RuntimeError("loaded by a client: " + ", ".join(found))
-    run = {"cell": name, "cell_spec": cell, "config": cfg, "manifest": man,
-           "root": root, "seconds": seconds, "clients": results}
+    return {"cell": name, "cell_spec": cell, "config": cfg, "manifest": man,
+            "root": root, "seconds": seconds, "clients": results,
+            "traced": trace, "device": device, "t0": t0,
+            "live": specs[0]["live"]}
+
+
+def report(run: dict, t_start: float) -> dict:
+    """The result line's object of a run that ``collect`` gathered."""
+    name, root, seconds = run["cell"], run["root"], run["seconds"]
+    cell, results, device = run["cell_spec"], run["clients"], run["device"]
     done = [d for r in results for *_, d in r["pictures"]
             if d is not None and 0.0 <= d <= seconds]
     fed = sum(1 for r in results for p in r["pictures"]
               if p[2] >= 0.0)
-    checks = check.judge(run, specs[0]["live"])
+    checks = check.judge(run, run["live"])
     metrics = {}
-    if not trace:
+    if not run["traced"]:
         value = {"fps": (len(done) / seconds, "frames/s"),
-                 "setup_s": (t0 - t_start, "s")}
+                 "setup_s": (run["t0"] - t_start, "s")}
         for m in cell["end_to_end"]:
             v, unit = value[lookup.quantity(m)]
             metrics[m] = {"value": v, "unit": unit}
     else:
+        if device == "cuda":
+            report_untraced(run)
         add_trace_union(run)
         for m in lookup.per_layer_metrics(name, root):
             reader = lookup.metric(m)
@@ -215,7 +233,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
            "power_limit_w": power_limit() if device == "cuda" else None}
     out = {"correct": checks["correct"], "attempted": fed,
            "failed": checks["failed"], "metrics": metrics, "device": dev}
-    if trace and run.get("union") is not None:
+    if run["traced"] and run.get("union") is not None:
         dev["busy_s"] = TR.covered(run["union"]) / 1e9
         dev["window_s"] = (run["trace_window"][1] -
                            run["trace_window"][0]) / 1e9
@@ -223,6 +241,21 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     out["checks"] = checks["numbers"]
     print(f"reference: {checks['reference_s']:.3f} s", file=sys.stderr)
     return out
+
+
+def report_untraced(run: dict) -> None:
+    """On stderr, each client that sent back no trace: its profiler
+    starts only at a GOP boundary inside the window's last
+    ``trace_seconds``, and it crossed none there."""
+    last = run["cell_spec"]["traffic"]["trace_seconds"]
+    since = run["seconds"] - last
+    for i, r in enumerate(run["clients"]):
+        if r["trace"]:
+            continue
+        fed = sum(1 for _, _, a, *_ in r["pictures"] if a >= since)
+        print(f"portbench: client {i} sent no trace: it fed {fed} "
+              f"pictures in the window's last {last} s and crossed no "
+              f"GOP boundary there", file=sys.stderr)
 
 
 def add_trace_union(run: dict) -> None:
@@ -243,7 +276,8 @@ def add_trace_union(run: dict) -> None:
 def breakdown(run: dict) -> dict:
     """The ten device operations that took most time over all clients,
     and the ten longest stretches in which no client had an operation on
-    the card, each named by what the clients' hosts were feeding then."""
+    the card, each named by what the clients' hosts were in then
+    (``host_activity``)."""
     totals = {}
     for r in run["clients"]:
         for name, (_, ns) in r["trace"]["ops"].items():
@@ -257,20 +291,29 @@ def breakdown(run: dict) -> dict:
 
 
 def host_activity(run: dict, s: int, e: int) -> str:
-    """What most clients' feed threads were in at the middle of [s, e]:
-    ``feed.I`` or ``feed.P`` (a ``decode_nal`` call of that picture), or
-    ``host`` (between calls)."""
-    mid = (s + e) / 2e9
+    """What most clients' hosts were in at the middle of [s, e]: where
+    every client sent the program's spans, the innermost span open then
+    on any of its threads (``host`` where none was); otherwise what its
+    feed thread was in, ``feed.I`` or ``feed.P`` (a ``decode_nal`` call
+    of that picture), or ``host`` (between calls)."""
+    mid = (s + e) // 2
+    spans = [(r.get("program") or {}).get("spans") for r in run["clients"]]
+    named = all(spans)
     votes = {}
-    for r in run["clients"]:
-        t0 = r["t0"]
-        what = "host"
-        for gop, k, a, b, *_ in r["pictures"]:
-            if b is not None and a + t0 <= mid <= b + t0:
-                what = "feed.I" if k == 0 else "feed.P"
-                break
+    for r, sp in zip(run["clients"], spans):
+        if named:
+            what = TR.innermost(sp, mid) or "host"
+        else:
+            what = feed_activity(r, mid / 1e9)
         votes[what] = votes.get(what, 0) + 1
     return max(sorted(votes), key=lambda w: votes[w])
+
+
+def feed_activity(r: dict, t: float) -> str:
+    for _, k, a, b, *_ in r["pictures"]:
+        if b is not None and a + r["t0"] <= t <= b + r["t0"]:
+            return "feed.I" if k == 0 else "feed.P"
+    return "host"
 
 
 def main(argv=None) -> int:

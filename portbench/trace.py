@@ -27,6 +27,21 @@ def clip(intervals: Iterable[Sequence[int]], lo: int, hi: int
             if e > lo and s < hi]
 
 
+def clip_spans(spans: Iterable[Sequence], lo: int, hi: int) -> List[list]:
+    """The program's spans ([name, thread, start, end]) cut to [lo, hi]:
+    the parts inside it, of those that overlap it."""
+    return [[n, th, max(int(s), lo), min(int(e), hi)]
+            for n, th, s, e in spans if e > lo and s < hi]
+
+
+def innermost(spans: Iterable[Sequence], t: int):
+    """The name of the innermost span open at `t`, over all threads: the
+    latest to start (of those that started together, the first to end);
+    None where none is open."""
+    open_ = [(-s, e, n) for n, _, s, e in spans if s <= t <= e]
+    return min(open_)[2] if open_ else None
+
+
 def covered(intervals: Iterable[Sequence[int]]) -> int:
     return sum(e - s for s, e in intervals)
 
