@@ -56,6 +56,7 @@ from ..bitstream.slice_header import (I_SLICE, P_SLICE, SliceHeader,
 from . import deblock as deblock_mod
 from . import graphs as GR
 from . import packed as PK
+from . import spans as SP
 from .conceal import conceal_picture, mark_slice_corrupted
 from .dpb import Dpb, DpbPicture
 from .graphs import GroupGraphs, StackSet
@@ -223,7 +224,8 @@ class Decoder:
         self._deferred = []
         self._executor = None
         if parallel_slices > 1 and self.frontend == "native":
-            self._executor = ThreadPoolExecutor(parallel_slices)
+            self._executor = ThreadPoolExecutor(
+                parallel_slices, thread_name_prefix="bw-slice")
         # the reference stacks, leased from core.graphs.STACK_POOL with the
         # graphs captured on them and K2/K3's progress counters for the
         # eager steps (this decoder's own: decoders on other threads never
@@ -320,7 +322,9 @@ class Decoder:
         pic, parser, sps, pps = self.pic, self.parser, self.sps, self.pps
 
         def one():
+            SP.end("slice.queued", queued)
             rbsp, pos, header, sg_map, slice_id, ref_slots = args
+            t0 = SP.begin()
             try:
                 nat.decode_slice_data_native(
                     rbsp, pos, pic, parser, header, sps,
@@ -329,11 +333,15 @@ class Decoder:
                 return None
             except SliceDataError as e:
                 return (header, sg_map, slice_id, e)
+            finally:
+                SP.end("slice.parse", t0)
 
+        queued = SP.begin()
         self._deferred.append(self._executor.submit(one))
 
     def _run_deferred(self) -> None:
         """Collect this picture's in-flight slice parses."""
+        t0 = SP.begin()
         work, self._deferred = self._deferred, []
         for fut in work:
             res = fut.result()
@@ -343,6 +351,7 @@ class Decoder:
                                      slice_id, e.last_mb_addr,
                                      self.sps.width_mbs)
         self.n_decoded_mbs = int(self.pic.decoded.sum())
+        SP.end("front.pool_wait", t0)
 
     # ------------------------------------------------------------------
     def decode_nal(self, nal: NalUnit) -> None:
@@ -474,6 +483,7 @@ class Decoder:
 
     # ------------------------------------------------------------------
     def _decode_slice_nal(self, nal: NalUnit) -> None:
+        t0 = SP.begin()
         nal_rbsp = nal.rbsp
         r = BitReader(nal.rbsp)
         new_au = self._check_au_boundary(nal, r)
@@ -505,6 +515,7 @@ class Decoder:
             # skipRedundantSlices / slice_data decoded-flag dedup). Only
             # when the primary was lost entirely does the redundant
             # slice decode below as the fallback picture.
+            SP.end("front.header", t0)
             return
 
         if self.pic is None:
@@ -530,14 +541,18 @@ class Decoder:
         slice_id = self.slice_count
         self.slice_count += 1
         self.last_header = header
+        SP.end("front.header", t0)
         try:
             if self.frontend == "native" and self._executor is not None:
+                t0 = SP.begin()
                 nat.append_slice_params(self.pic, header, slice_id,
                                         ref_slots)
                 self._submit_slice((nal_rbsp, r.pos, header, sg_map,
                                     slice_id, ref_slots))
+                SP.end("front.submit", t0)
                 return        # collected at the picture boundary
-            elif self.frontend == "native":
+            t0 = SP.begin()
+            if self.frontend == "native":
                 nat.decode_slice_data_native(nal_rbsp, r.pos, self.pic,
                                              self.parser, header, self.sps,
                                              self.pps, sg_map, slice_id,
@@ -546,6 +561,7 @@ class Decoder:
                 decode_slice_data(r, self.pic, self.parser, header,
                                   self.sps, self.pps, sg_map, slice_id,
                                   ref_slots)
+            SP.end("front.parse", t0)
         except SliceDataError as e:
             # corrupt slice: un-decode its MBs; concealment happens when
             # the picture boundary is detected (h264bsd_decoder.c:236-276)
@@ -560,6 +576,7 @@ class Decoder:
 
     # ------------------------------------------------------------------
     def _start_picture(self, header: SliceHeader) -> None:
+        t0 = SP.begin()
         sps = self.sps
         self.pic = PictureData(sps.width_mbs, sps.height_mbs)
         self.parser = MbParser(self.pic, self.pps.constrained_intra_pred)
@@ -570,8 +587,10 @@ class Decoder:
             self.dpb.check_gaps_in_frame_num(
                 header.frame_num, sps.gaps_in_frame_num_allowed)
         self.dpb.allocate_picture()
+        SP.end("front.start_picture", t0)
 
     def _finish_picture(self, concealed: bool) -> None:
+        t0 = SP.begin()
         pic, header = self.pic, self.pic_header
         sps, pps = self.sps, self.pps
         self.pic, self.pic_header = None, None
@@ -620,6 +639,7 @@ class Decoder:
         self.dpb.prev_ref_frame_num = header.frame_num \
             if header.nal_ref_idc else self.dpb.prev_ref_frame_num
         self._drain()
+        SP.end("front.finish", t0)
 
     # ------------------------------------------------------------------
     # Stage B
@@ -660,6 +680,17 @@ class Decoder:
                 self._executor.shutdown(wait=True)
                 self._executor = None
             self._return_stacks()
+
+    def trace_snapshot(self) -> dict:
+        """The port's spans and counters (``core/spans.py``): ``{"counters":
+        {name: count}, "spans": [[name, thread name, start ns, end ns],
+        ...]}``, times on ``time.time_ns()``. The counters count since
+        recording began; the spans are those that ended since the previous
+        call, which this call removes. The recorder is the process's, not
+        this decoder's: in a process with several decoders their spans and
+        counters come back together, to whichever calls. Recording begins
+        with the process's first call and stays on."""
+        return SP.RECORDER.snapshot()
 
     @property
     def stack_set(self) -> Optional[StackSet]:
@@ -738,19 +769,24 @@ class Decoder:
                 frame._set(self._picture_step(stacks, buf, slot, lay, bk,
                                               ci, co))
 
+        t0 = SP.begin()
         with self._pump_lock:
             self._pump_reap(wait=False)
             if self._pump is None:
                 self._pump = ThreadPoolExecutor(
                     1, thread_name_prefix="bw-pump")
-            self._pump_pend.append(
-                self._pump.submit(self._pump_run, step, frame))
+            self._pump_pend.append(self._pump.submit(
+                self._pump_run, step, frame, SP.begin()))
+        SP.end("pump.submit", t0)
         return frame
 
-    def _pump_run(self, step, frame: LazyTorchFrame) -> None:
-        """One job on the pump worker. The first failure is kept: the jobs
-        queued behind it do not run (their references would be stale), and
-        every frame of theirs raises it."""
+    def _pump_run(self, step, frame: LazyTorchFrame, queued: int) -> None:
+        """One job on the pump worker (`queued`: the start of its time in
+        the queue, taken at its submit). The first failure is kept: the
+        jobs queued behind it do not run (their references would be
+        stale), and every frame of theirs raises it."""
+        SP.end("pump.queued", queued)
+        t0 = SP.begin()
         try:
             if self._pump_failed is not None:
                 raise RuntimeError("not decoded: an earlier picture's step "
@@ -761,6 +797,8 @@ class Decoder:
                 self._pump_failed = e
             frame._fail(e)
             raise
+        finally:
+            SP.end("pump.job", t0)
 
     def _pump_reap(self, wait: bool) -> None:
         """Forget the finished jobs (all of them after waiting for them
@@ -776,8 +814,10 @@ class Decoder:
     def _pump_flush(self) -> None:
         """Drain the dispatch pump: after this no worker job touches the
         device stacks, so the feed thread may read or rebuild them."""
+        t0 = SP.begin()
         with self._pump_lock:
             self._pump_reap(wait=True)
+        SP.end("pump.drain", t0)
 
     def _flush_group(self) -> None:
         """Drain the pump, then run the pending frame group and give its
@@ -912,7 +952,9 @@ class Decoder:
             if self._pack2_scratch is None or \
                     self._pack2_scratch.lay is not lay:
                 self._pack2_scratch = PK.PackScratchV2(lay)
+            t0 = SP.begin()
             res = PK.pack_picture_v2(pic, lay, self._pack2_scratch)
+            SP.end("front.pack", t0)
             if res is not None:
                 buf, bk = res
                 if self.group_frames > 1:
@@ -928,7 +970,9 @@ class Decoder:
             if self._pack_scratch is None or \
                     self._pack_scratch.lay is not lay:
                 self._pack_scratch = PK.PackScratch(lay)
+            t0 = SP.begin()
             buf, kb = PK.pack_picture(pic, lay, self._pack_scratch)
+            SP.end("front.pack", t0)
             return self._v1_step(own, buf, slot, lay, kb, ci, co)
         return self._arrays_step(own, host_picture_arrays(pic, co, ci), slot,
                                  co)

@@ -77,6 +77,7 @@ import torch
 from ..ops.gpu import _build
 from ..ops.gpu import peer as PEER
 from ..ops.gpu import wavefront_kernels as KW
+from . import spans as SP
 from .packed import PackedLayout, PackedLayoutV2, host_arrays_layout, \
     pack_host_arrays
 from .recon import TorchFrame, decode_host_arrays_slots, \
@@ -113,7 +114,10 @@ def graph_or_eager(graphs: "GroupGraphs", dev: torch.device, w_mbs: int,
                 return TorchFrame(yuv, W, H)
             return [TorchFrame(y, W, H) for y in yuv]
     graphs.counts["eager"] += 1
-    return eager()
+    t0 = SP.begin()
+    out = eager()
+    SP.end("step.eager", t0)
+    return out
 
 
 def picture_step(graphs: "GroupGraphs", kind: str, args: tuple, body,
@@ -229,6 +233,22 @@ def unpacked_step(s: "StackSet", arrs: dict, slot: int,
                         stack_c, h_mbs, s.progress)
 
 
+def _wait_for_upload(events: list) -> None:
+    """Wait for the events of a graph's previous upload, so that its
+    staging buffers may be written again (the span ``graph.sync``).
+    While recording, count the wait (``graph.uploads``) and, by one query
+    of each event first, whether an upload was still in flight
+    (``graph.sync_blocked``)."""
+    if SP.recording():
+        SP.count("graph.uploads")
+        if not all(ev.query() for ev in events):
+            SP.count("graph.sync_blocked")
+    t0 = SP.begin()
+    for ev in events:
+        ev.synchronize()
+    SP.end("graph.sync", t0)
+
+
 class GroupGraph:
     """The group step for one key, captured once and replayed. It owns
     its static inputs (bufs u8 [G, size] and its index, the slots int64
@@ -290,11 +310,13 @@ class GroupGraph:
                              f"{tuple(self.bufs.shape)} and "
                              f"{tuple(self.index.shape)}")
         if self._uploaded is not None:
-            self._uploaded.synchronize()
+            _wait_for_upload([self._uploaded])
+        t0 = SP.begin()
         self._host_bufs.numpy()[...] = bufs
         self._host_index.numpy()[...] = index
         self.bufs.copy_(self._host_bufs, non_blocking=True)
         self.index.copy_(self._host_index, non_blocking=True)
+        SP.end("graph.upload", t0)
         self._uploaded = torch.cuda.current_stream(
             self.bufs.device).record_event()
 
@@ -312,6 +334,7 @@ class GroupGraph:
         (nothing runs), then instantiate it; keeps the launches it
         recorded, its cost by part and the bytes it added to the pool."""
         dev = self.bufs.device
+        t_span = SP.begin()
         with _capture_lock:
             reserved = torch.cuda.memory_reserved(dev)
             KW.take_captured(KW.INTRA)       # nothing left from before
@@ -335,6 +358,7 @@ class GroupGraph:
         self.capture_parts = {"enqueue_ms": 1e3 * (t1 - t0),
                               "instantiate_ms": 1e3 * (t2 - t1)}
         self.capture_ms = 1e3 * (t2 - t0)
+        SP.end("graph.capture", t_span)
 
     def capture(self, bufs: np.ndarray, slots: Sequence[int],
                 stream: torch.cuda.Stream, pool) -> torch.Tensor:
@@ -368,13 +392,16 @@ class GroupGraph:
         return self._launch()
 
     def _launch(self):
+        t0 = SP.begin()
         self.graph.replay()
         for wrapper, n in self.launches.items():
             _build.add_launches(wrapper, n)
         for which, n in self.device_launches.items():
             KW.add_launches(which, n)
         self.replays += 1
-        return self._frames()
+        frames = self._frames()
+        SP.end("graph.replay", t0)
+        return frames
 
 
 class RoundGraph(GroupGraph):
@@ -529,8 +556,9 @@ class MeshGraph:
                              f"{index.shape} for a graph of "
                              f"{tuple(self._host_bufs.shape)} and "
                              f"{tuple(self._host_index.shape)}")
-        for ev in self._uploaded:
-            ev.synchronize()
+        if self._uploaded:
+            _wait_for_upload(self._uploaded)
+        t0 = SP.begin()
         self._host_bufs.numpy()[...] = bufs
         self._host_index.numpy()[...] = index
         self._uploaded = []
@@ -538,6 +566,7 @@ class MeshGraph:
             self.bufs[d].copy_(self._host_bufs, non_blocking=True)
             self.index[d].copy_(self._host_index, non_blocking=True)
             self._uploaded.append(torch.cuda.current_stream(d).record_event())
+        SP.end("graph.upload", t0)
 
     def _fetch(self, card: torch.device):
         """The fetch of a capture on `card`: a piece of a band of the same
@@ -572,6 +601,7 @@ class MeshGraph:
         graph (nothing runs), and instantiate them; keeps the launches
         they recorded, their cost by part and the bytes they added to the
         cards' pools."""
+        t_span = SP.begin()
         with _capture_lock:
             reserved = {d: torch.cuda.memory_reserved(d) for d in self.cards}
             KW.take_captured(KW.INTRA)
@@ -618,6 +648,7 @@ class MeshGraph:
         self.capture_parts = {"enqueue_ms": 1e3 * (t1 - t0),
                               "instantiate_ms": 1e3 * (t2 - t1)}
         self.capture_ms = 1e3 * (t2 - t0)
+        SP.end("graph.capture", t_span)
 
     def record_and_replay(self, bufs: np.ndarray, index, stream=None,
                           pool=None):
@@ -639,6 +670,7 @@ class MeshGraph:
         return self._launch(marks)
 
     def _launch(self, marks: dict = None):
+        t_span = SP.begin()
         ms = dict.fromkeys(self.cards, 0.0)
         for card in self.cards:
             cur = torch.cuda.current_stream(card)
@@ -667,7 +699,9 @@ class MeshGraph:
         for which, n in self.device_launches.items():
             KW.add_launches(which, n)
         self.replays += 1
-        return [self.out[self.cards[0]][0].clone()]
+        frames = [self.out[self.cards[0]][0].clone()]
+        SP.end("graph.replay", t_span)
+        return frames
 
 
 class GroupGraphs:
