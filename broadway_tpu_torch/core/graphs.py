@@ -85,6 +85,7 @@ from .recon import TorchFrame, decode_host_arrays_slots, \
     decode_pictures_packed_round
 
 MAX_GRAPHS = 8          # graphs kept per stack set; the least recently used go
+STAGING_DEPTH = 2       # pinned staging buffers per graph, written in turn
 MAX_SETS = 4            # free stack sets kept per key; the oldest go
 
 # one capture at a time in the process, so that the reserved bytes before
@@ -233,26 +234,40 @@ def unpacked_step(s: "StackSet", arrs: dict, slot: int,
                         stack_c, h_mbs, s.progress)
 
 
-def _wait_for_upload(events: list) -> None:
-    """Wait for the events of a graph's previous upload, so that its
-    staging buffers may be written again (the span ``graph.sync``).
-    While recording, count the wait (``graph.uploads``) and, by one query
-    of each event first, whether an upload was still in flight
-    (``graph.sync_blocked``)."""
-    if SP.recording():
+def _wait_for_upload(events: list, previous: Optional[list] = None) -> None:
+    """Wait until the copies out of a staging buffer have completed
+    (`events`: recorded after the upload that last wrote it), so that it
+    may be written again: each event is queried first and synchronized
+    only while its copy is still in flight (the span ``graph.sync``,
+    whether or not it blocked). `previous`: the events of the graph's
+    last upload, through whichever buffer; None where the graph has one
+    buffer, whose last upload `events` is. While recording, count the
+    upload (``graph.uploads``), whether a copy out of this buffer was
+    still in flight (``graph.sync_blocked``) and, by one query of each of
+    `previous` before the wait, whether the last upload was
+    (``graph.upload_ahead``)."""
+    recording = SP.recording()
+    if recording:
         SP.count("graph.uploads")
-        if not all(ev.query() for ev in events):
-            SP.count("graph.sync_blocked")
+        if previous is not None and not all(ev.query() for ev in previous):
+            SP.count("graph.upload_ahead")
     t0 = SP.begin()
-    for ev in events:
+    pending = [ev for ev in events if not ev.query()]
+    for ev in pending:
         ev.synchronize()
     SP.end("graph.sync", t0)
+    if recording and pending:
+        SP.count("graph.sync_blocked")
+        if previous is None:
+            SP.count("graph.upload_ahead")
 
 
 class GroupGraph:
     """The group step for one key, captured once and replayed. It owns
     its static inputs (bufs u8 [G, size] and its index, the slots int64
-    [G], on the card, fed from pinned staging buffers), K2/K3's progress
+    [G], on the card, fed from a ring of STAGING_DEPTH pinned staging
+    buffers, so that an upload waits only for the copies out of the buffer
+    it rewrites, made STAGING_DEPTH uploads before), K2/K3's progress
     counters (so that two graphs never share them), and its static output
     (yuv u8 [G, bytes], overwritten by every replay)."""
 
@@ -277,11 +292,14 @@ class GroupGraph:
         self.bufs = torch.empty((group, size), dtype=torch.uint8, device=dev)
         self.index = torch.zeros(index_shape, dtype=index_dtype, device=dev)
         pin = dev.type == "cuda"
-        self._host_bufs = torch.empty((group, size), dtype=torch.uint8,
-                                      pin_memory=pin)
-        self._host_index = torch.empty(index_shape, dtype=index_dtype,
-                                       pin_memory=pin)
-        self._uploaded = None    # event: the last upload from staging done
+        self._staging = [
+            (torch.empty((group, size), dtype=torch.uint8, pin_memory=pin),
+             torch.empty(index_shape, dtype=index_dtype, pin_memory=pin))
+            for _ in range(STAGING_DEPTH)]
+        # per staging buffer: the events after the copies out of it (none
+        # before its first upload)
+        self._copied = [[] for _ in range(STAGING_DEPTH)]
+        self._turn = 0          # the staging buffer the next upload writes
         self.workspace = torch.zeros(rows, dtype=torch.int32, device=dev)
         # captured without instantiating, so that instantiate is timed apart
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -300,8 +318,10 @@ class GroupGraph:
     def _upload(self, bufs: np.ndarray, index) -> None:
         """The buffers and the index (a group's slots, a round's table)
         into the static inputs, by copies on the current stream that do
-        not block the host; a staging buffer is rewritten only once the
-        copy out of it has completed."""
+        not block the host, out of the ring's next staging buffer; a
+        staging buffer is rewritten only once the copies out of it have
+        completed. Stream order keeps each copy behind the previous
+        replay, so the inputs on the card stay one buffer."""
         index = np.asarray(index)
         if tuple(bufs.shape) != tuple(self.bufs.shape) or \
                 index.shape != tuple(self.index.shape):
@@ -309,16 +329,20 @@ class GroupGraph:
                              f"{index.shape} for a graph of "
                              f"{tuple(self.bufs.shape)} and "
                              f"{tuple(self.index.shape)}")
-        if self._uploaded is not None:
-            _wait_for_upload([self._uploaded])
+        k = self._turn
+        last = self._copied[k - 1]      # the graph's previous upload's
+        if last:
+            _wait_for_upload(self._copied[k], last)
+        host_bufs, host_index = self._staging[k]
         t0 = SP.begin()
-        self._host_bufs.numpy()[...] = bufs
-        self._host_index.numpy()[...] = index
-        self.bufs.copy_(self._host_bufs, non_blocking=True)
-        self.index.copy_(self._host_index, non_blocking=True)
+        host_bufs.numpy()[...] = bufs
+        host_index.numpy()[...] = index
+        self.bufs.copy_(host_bufs, non_blocking=True)
+        self.index.copy_(host_index, non_blocking=True)
         SP.end("graph.upload", t0)
-        self._uploaded = torch.cuda.current_stream(
-            self.bufs.device).record_event()
+        self._copied[k] = [torch.cuda.current_stream(
+            self.bufs.device).record_event()]
+        self._turn = (k + 1) % STAGING_DEPTH
 
     def _step(self) -> torch.Tensor:
         return decode_pictures_packed_group(

@@ -41,9 +41,13 @@ MAXLEN = 1 << 17        # spans kept between two snapshots; the oldest go
 # the counters, listed from the start so that every snapshot names them
 COUNTERS = (
     "graph.uploads",        # uploads of a graph's inputs that had an
-    #                         earlier upload to wait for
-    "graph.sync_blocked",   # of those, the ones whose earlier upload was
-    #                         still in flight when the wait began
+    #                         earlier upload of that graph before them
+    "graph.sync_blocked",   # of those, the ones that found the copies out
+    #                         of the staging buffer they rewrite still in
+    #                         flight (the upload STAGING_DEPTH before)
+    "graph.upload_ahead",   # of those, the ones made while the graph's
+    #                         previous upload was still in flight: those a
+    #                         graph with one staging buffer would hold back
 )
 
 _now = time.time_ns

@@ -15,7 +15,9 @@ import sys
 import threading
 import time
 
+import numpy as np
 import pytest
+import torch
 
 from broadway_tpu_torch.bitstream import bitreader as br
 from broadway_tpu_torch.core import graphs as GR
@@ -253,9 +255,10 @@ def test_no_span_is_lost_to_a_concurrent_snapshot(monkeypatch):
 
 class _Event:
     def __init__(self, done):
-        self.done, self.waited = done, 0
+        self.done, self.waited, self.queried = done, 0, 0
 
     def query(self):
+        self.queried += 1
         return self.done
 
     def synchronize(self):
@@ -265,12 +268,105 @@ class _Event:
 @pytest.mark.parametrize("done,blocked", [
     ((True,), 0), ((False,), 1), ((True, False), 1), ((True, True), 0)])
 def test_an_upload_wait_counts_whether_it_blocked(recorder, done, blocked):
+    """A graph with one staging buffer (``MeshGraph``): its last upload is
+    the one that wrote the buffer, so an upload that blocked was also
+    made ahead of it. Only the events still in flight are synchronized."""
     events = [_Event(d) for d in done]
     GR._wait_for_upload(events)          # off: counts nothing
     assert set(recorder.counters.values()) == {0}
     recorder.snapshot()
     GR._wait_for_upload(events)
     assert recorder.counters == {"graph.uploads": 1,
-                                 "graph.sync_blocked": blocked}
-    assert all(ev.waited == 2 for ev in events)
+                                 "graph.sync_blocked": blocked,
+                                 "graph.upload_ahead": blocked}
+    assert [ev.waited for ev in events] == [0 if d else 2 for d in done]
     assert [n for n, *_ in recorder.snapshot()["spans"]] == ["graph.sync"]
+
+
+class _Stream:
+    """The current stream of a fake card: its k-th recorded event (the
+    copies of the k-th upload) is done as done(k) says."""
+
+    def __init__(self, done):
+        self.done, self.events = done, []
+
+    def record_event(self):
+        self.events.append(_Event(self.done(len(self.events))))
+        return self.events[-1]
+
+
+RING_SIZE = 8
+
+
+def _ring_graph(monkeypatch, depth, done):
+    """A one-picture graph on the CPU with `depth` staging buffers, its
+    uploads' events from a fake stream (no capture: only ``_upload``
+    runs)."""
+    monkeypatch.setattr(GR, "STAGING_DEPTH", depth)
+    monkeypatch.setattr(GR, "runs_eagerly", lambda dev: False)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph",
+                        lambda keep_graph=False: None)
+    stream = _Stream(done)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: stream)
+    ref = torch.zeros((3, 16, 16), dtype=torch.uint8)
+    return GR.PictureGraph("v1", ref, ref, RING_SIZE, 1, None), stream
+
+
+def _done(k):
+    """Whether upload k's copies have completed: all but those of uploads
+    1, 4, 7, ..., which are still in flight whenever they are queried."""
+    return k % 3 != 1
+
+
+@pytest.mark.parametrize("case", ["turns", "waits", "counters", "shapes"])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_the_staging_ring(recorder, monkeypatch, depth, case):
+    """Upload k of a graph writes staging buffer k mod D and leaves the
+    others as they were; it waits only on upload k - D's event, so the
+    first D wait on nothing, and a finished event is never synchronized;
+    the counters count only while recording: uploads after the first,
+    those whose buffer's copy was in flight (k - D) and those made while
+    the previous upload (k - 1) was; a wrong shape still raises, and
+    takes no turn."""
+    g, stream = _ring_graph(monkeypatch, depth, _done)
+    n, on = 3 * depth + 4, depth + 2  # recording from upload `on` on
+
+    def upload(k):
+        g._upload(np.full((1, RING_SIZE), k, dtype=np.uint8), [k % 3])
+
+    for k in range(n):
+        if case == "counters" and k == on:
+            assert set(recorder.counters.values()) == {0}
+            # off: only the buffer's own event was queried, once
+            assert sum(ev.queried for ev in stream.events) == on - depth
+            recorder.snapshot()
+        if case == "shapes":
+            with pytest.raises(ValueError):
+                g._upload(np.zeros((1, RING_SIZE + 1), np.uint8), [0])
+            with pytest.raises(ValueError):
+                g._upload(np.zeros((1, RING_SIZE), np.uint8), [0, 1])
+        upload(k)
+        if case in ("turns", "shapes"):
+            held = [int(b[0, 0]) for b, _ in g._staging]
+            assert all(held[j % depth] == j
+                       for j in range(max(0, k - depth + 1), k + 1))
+            assert int(g.bufs[0, 0]) == k
+            assert [int(i[0]) for _, i in g._staging][k % depth] == k % 3
+        elif case == "waits":
+            waited = [i for i, ev in enumerate(stream.events) if ev.waited]
+            assert waited == [i for i in range(k - depth + 1)
+                              if not _done(i)]
+            assert all(ev.waited <= 1 for ev in stream.events)
+    assert len(stream.events) == n
+    if case == "counters":
+        seen = range(on, n)
+        assert recorder.counters == {
+            "graph.uploads": sum(1 for k in seen if k >= 1),
+            "graph.sync_blocked": sum(1 for k in seen if k >= depth
+                                      and not _done(k - depth)),
+            "graph.upload_ahead": sum(1 for k in seen if k >= 1
+                                      and not _done(k - 1))}
+        names = [s[0] for s in recorder.snapshot()["spans"]]
+        assert names.count("graph.upload") == len(seen)
+        assert names.count("graph.sync") == sum(1 for k in seen if k >= 1)

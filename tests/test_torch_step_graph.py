@@ -332,6 +332,9 @@ class _FakeStream:
 
 
 class _FakeEvent:
+    def query(self):
+        return True
+
     def synchronize(self):
         pass
 
@@ -508,3 +511,53 @@ def test_default_decoder_replays_on_the_card():
         assert [a - b for a, b in zip(after, before)] == [len(want)] * 3
     assert counts[0]["captured"] >= 1 and counts[1]["captured"] == 0
     assert counts[1]["replayed"] == len(want) - counts[1]["eager"]
+
+
+@pytest.mark.cuda
+def test_staging_ring_runs_ahead_of_the_card():
+    """While a hold keeps the card's stream busy, STAGING_DEPTH uploads
+    and replays of one per-picture graph return to the host (none waits
+    for the copies queued behind the hold); the D + 2 pictures through the
+    graph, its capture's among them, equal their eager steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from broadway_tpu_torch.ops.gpu import probe
+
+    dev = torch.device("cuda")
+    D = GR.STAGING_DEPTH
+    pics = PK.pack_stream(streams.realistic_stream(
+        width_mbs=12, height_mbs=8, n_frames=D + 4, n_slices=3,
+        seed=7)[0])[1:]                 # D + 3 P pictures: one key
+    lay, ci, co, R = pics[0][2], pics[0][3], pics[0][4], pics[0][5]
+    BK = tuple(max(p[1][j] for p in pics) for j in range(3))
+    bufs = [PK.expand_buf_v2(p[0], lay, p[1], BK) for p in pics]
+    slots = [k % R for k in range(len(pics))]
+    rng = np.random.RandomState(7)
+    sy = torch.from_numpy(rng.randint(0, 256, (R, 16 * lay.h, 16 * lay.w),
+                                      dtype=np.uint8)).to(dev)
+    sc = torch.from_numpy(rng.randint(0, 256, (R, 2, 8 * lay.h, 8 * lay.w),
+                                      dtype=np.uint8)).to(dev)
+    ey, ec = sy.clone(), sc.clone()
+    want = [RC.decode_picture_packed2(torch.from_numpy(p[0]).to(dev), ey, ec,
+                                      s, lay, p[1], ci, co).tobytes()
+            for p, s in zip(pics, slots)]
+    graphs = GR.GroupGraphs()
+
+    def step(k):
+        return graphs.step(bufs[k], slots[k], sy, sc, lay, BK, ci, co)
+
+    assert step(0) is None              # the key's first picture: eager
+    got = [RC.decode_picture_packed2(torch.from_numpy(bufs[0]).to(dev), sy,
+                                     sc, slots[0], lay, BK, ci, co).tobytes()]
+    graph = [step(1)]                   # captured, then replayed
+    torch.cuda.synchronize()
+    probe.hold_stream(400_000_000, dev)     # some 0.2 s
+    held = torch.cuda.current_stream(dev).record_event()
+    graph += [step(k) for k in range(2, D + 2)]
+    assert not held.query()             # all D returned during the hold
+    graph.append(step(D + 2))
+    torch.cuda.synchronize()
+    got += [bytes(y.cpu().numpy()) for y in graph]
+    assert got == want
+    assert torch.equal(sy, ey) and torch.equal(sc, ec)
+    assert graphs.counts == {"eager": 0, "captured": 1, "replayed": D + 1}
