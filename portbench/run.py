@@ -63,25 +63,41 @@ def plan(cell: dict, cfg: dict, n_gops: int, seed: int, trace: bool,
     """Each client's spec, from the seed: every client goes through the
     whole pool, in an order of its own from a start of its own, and
     starts its window at a picture of its own inside a GOP, so that every
-    seed gives the card the same work in another arrangement."""
+    seed gives the card the same work in another arrangement.
+
+    A client of a lockstep cell (``traffic.lockstep`` = N streams,
+    ``portbench/lockstep_client.py``) gets N streams instead, each with an
+    order of its own over the whole pool and a GOP of its own to start
+    from, and ``warm_gops`` calls of warm-up; a cell without the key
+    draws what it drew before the key existed."""
     t = cell["traffic"]
     rng = random.Random(seed)
     n_pics = cfg["generator"]["args"]["n_frames"]
     live = {"gop": rng.randrange(n_gops),
             "pictures": t["check"]["live_pictures"]}
-    specs = []
-    for i in range(t["clients"]):
+
+    def shuffled() -> list:
         order = list(range(n_gops))
         rng.shuffle(order)
-        specs.append({
-            "client": i, "config": cell["config"], "root": root,
-            "device": device,
-            "parallel_slices": t["parallel_slices"], "order": order,
-            "warm_pictures": t["warm_gops"] * n_pics +
-            rng.randrange(n_pics),
-            "trace": trace, "trace_seconds": t["trace_seconds"],
-            "sample": t["check"]["sample_per_client"],
-            "rng_seed": rng.getrandbits(63), "live": live})
+        return order
+
+    specs = []
+    for i in range(t["clients"]):
+        spec = {"client": i, "config": cell["config"], "root": root,
+                "device": device, "parallel_slices": t["parallel_slices"]}
+        if "lockstep" in t:
+            spec["streams"] = [{"order": shuffled(),
+                                "start": rng.randrange(n_gops)}
+                               for _ in range(t["lockstep"])]
+            spec["warm_calls"] = t["warm_gops"]
+        else:
+            spec["order"] = shuffled()
+            spec["warm_pictures"] = t["warm_gops"] * n_pics + \
+                rng.randrange(n_pics)
+        spec.update(trace=trace, trace_seconds=t["trace_seconds"],
+                    sample=t["check"]["sample_per_client"],
+                    rng_seed=rng.getrandbits(63), live=live)
+        specs.append(spec)
     return specs
 
 
@@ -168,7 +184,9 @@ def collect(name: str, seed: int, seconds: float, trace: bool,
     specs = plan(cell, cfg, len(man["gops"]), seed, trace, device, root)
     if device == "cuda":
         build_libraries()
-    argv = client_argv or [sys.executable, "-m", "portbench.client"]
+    module = ("portbench.lockstep_client" if "lockstep" in cell["traffic"]
+              else "portbench.client")
+    argv = client_argv or [sys.executable, "-m", module]
     procs = start_clients(specs, argv)
     try:
         deadline = time.time() + READY_S

@@ -78,11 +78,12 @@ def test_control_fails_where_the_reference_passes():
     assert sum(a != b for a, b in zip(got, want)) >= 2
 
 
-def test_control_cli_reads_a_difference_on_the_360p_cell(capsys):
-    """The control's command on the 360p cell's live pictures, as the chip
+@pytest.mark.parametrize("cell", ["story-360p.procs6",
+                                  "story-360p.lockstep6"])
+def test_control_cli_reads_a_difference_on_the_360p_cell(capsys, cell):
+    """The control's command on a 360p cell's live pictures, as the chip
     run reads it (a seed whose live GOP the test fixes by the plan)."""
-    assert control.main(["--workload", "story-360p.procs6",
-                         "--seed", "7"]) == 0
+    assert control.main(["--workload", cell, "--seed", "7"]) == 0
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["pictures"] == 4
     assert row["live_differing"] >= 1

@@ -170,7 +170,8 @@ def test_the_tiny_cell_sends_counters_and_no_spans(tiny_root):
     assert out["correct"] is True
     for c in r["clients"]:
         assert c["program"] == {"counters": {"graph.uploads": 0,
-                                             "graph.sync_blocked": 0},
+                                             "graph.sync_blocked": 0,
+                                             "graph.upload_ahead": 0},
                                 "spans": []}
     for name in READERS:
         assert lookup.metric(name).read(r) is None
